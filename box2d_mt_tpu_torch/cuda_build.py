@@ -1,0 +1,62 @@
+"""Build and load the port's CUDA sources at first use.
+
+Each kernel source under `csrc/` compiles with nvcc into a shared library
+with a plain C interface, which `ctypes` loads (no PyTorch headers, so a
+build takes seconds). Libraries land in `build/box2d_mt_tpu_torch/` at the
+checkout root, keyed by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "box2d_mt_tpu_torch"
+
+# --fmad=false keeps every product and sum separately rounded, as in the
+# plain PyTorch versions the kernels are held against.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@functools.cache
+def build(name: str) -> dict:
+    """Compile `csrc/<name>.cu` (once per process and source hash).
+    Returns {"path", "seconds", "log"}; raises with nvcc's output on
+    failure."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+    if out.exists():
+        return {"path": out, "seconds": 0.0, "log": "cached"}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name)["path"]))

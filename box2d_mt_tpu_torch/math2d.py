@@ -1,0 +1,35 @@
+"""Batched 2D math on tensors whose last axis is the 2-vector.
+
+Equivalents of `box2d_mt_tpu.math2d` (reference: Box2D/Common/b2Math.h):
+a rotation is a (..., 2) tensor of (sin, cos) and a transform is the pair
+(p, q). Every operation keeps the JAX package's order of floating-point
+operations so that the two packages agree to the last bits where the
+underlying elementwise kernels do.
+"""
+
+import torch
+
+
+def rot_from_angle(angle):
+    """b2Rot::Set (b2Math.h:288-293): (..., 2) of (sin, cos)."""
+    return torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def rot_vec(q, v):
+    """b2Mul(q, v) (b2Math.h:451-454): rotate v by q."""
+    s, c = q[..., 0], q[..., 1]
+    x, y = v[..., 0], v[..., 1]
+    return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+def body_xf(c, a, local_center):
+    """Body-origin transform (p, q) from the sweep center and angle."""
+    q = rot_from_angle(a)
+    return c - rot_vec(q, local_center), q
+
+
+def take(x, idx):
+    """Batched gather along the slot axis: x (W, M, ...), idx (W, K) with
+    entries in [0, M) -> (W, K, ...)."""
+    w = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[w, idx]

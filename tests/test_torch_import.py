@@ -1,0 +1,25 @@
+"""The PyTorch port imports without JAX."""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_MODULES = ("box2d_mt_tpu_torch", "box2d_mt_tpu_torch.world",
+            "box2d_mt_tpu_torch.models.scenes",
+            "box2d_mt_tpu_torch.parallel.rollout",
+            "box2d_mt_tpu_torch.ops.solve_middle",
+            "box2d_mt_tpu_torch.cuda_build")
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'box2d_mt_tpu.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

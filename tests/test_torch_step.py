@@ -1,0 +1,104 @@
+"""The port's step_batched(continuous=False) against the JAX package's.
+
+pyramid(6) x 2 worlds (32 body slots, 128 contact slots) is carried across
+with `state_from_numpy` and stepped by both packages; after every step the
+trajectories agree (c, a to 2e-5; v, w to 1e-4) and every discrete
+quantity is equal: awake flags, the pair table, touch flags, colors and
+ranks. Contacts begin near step 13 and the stack sleeps before step 90."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from box2d_mt_tpu import world as jworld
+from box2d_mt_tpu.models import scenes as jscenes
+from box2d_mt_tpu.parallel.sharding import replicate_state
+from box2d_mt_tpu_torch import world as tworld
+from box2d_mt_tpu_torch.models import scenes as tscenes
+from box2d_mt_tpu_torch.parallel.rollout import make_rollout
+from box2d_mt_tpu_torch.state import state_from_numpy, to_numpy
+
+from conftest import GOLDEN
+
+DT = 1.0 / 60.0
+STEPS = 90
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    jst = replicate_state(jscenes.pyramid(6), 2)
+    kinds = jworld.possible_kinds(jscenes.pyramid(6))
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst))
+    jax_steps, port_steps, port_events = [], [], []
+    for _ in range(STEPS):
+        jst, jev = jworld.step_batched(jst, jnp.float32(DT), kinds=kinds,
+                                       continuous=False)
+        tst, tev = tworld.step_batched(tst, DT, kinds=kinds, continuous=False)
+        jax_steps.append((jax.tree.map(np.asarray, jst),
+                          int(np.asarray(jev.color_overflow).max())))
+        port_steps.append(to_numpy(tst))
+        port_events.append(tev)
+    return jax_steps, port_steps, port_events
+
+
+def test_step_matches_jax_every_step(trajectories):
+    jax_steps, port_steps, port_events = trajectories
+    touched = 0
+    for i in range(40):
+        (j, j_ov), t, ev = jax_steps[i], port_steps[i], port_events[i]
+        jb, tb = j.bodies, t.bodies
+        np.testing.assert_allclose(tb.c, jb.c, rtol=0, atol=2e-5, err_msg=f"c @{i}")
+        np.testing.assert_allclose(tb.a, jb.a, rtol=0, atol=2e-5, err_msg=f"a @{i}")
+        np.testing.assert_allclose(tb.v, jb.v, rtol=0, atol=1e-4, err_msg=f"v @{i}")
+        np.testing.assert_allclose(tb.w, jb.w, rtol=0, atol=1e-4, err_msg=f"w @{i}")
+        for grp, name in (("bodies", "awake"), ("contacts", "f_a"),
+                          ("contacts", "f_b"), ("contacts", "touching"),
+                          ("cache", "color"), ("cache", "rank"),
+                          ("cache", "labels")):
+            np.testing.assert_array_equal(
+                getattr(getattr(t, grp), name), getattr(getattr(j, grp), name),
+                err_msg=f"{grp}.{name} @{i}")
+        assert j_ov == 0 and int(ev.color_overflow.max()) == 0
+        assert ev.host_syncs >= 1
+        touched = max(touched, int(t.contacts.touching.sum()))
+    assert touched > 40                 # the stack is in contact by step 40
+
+
+def test_sleep_matches_jax(trajectories):
+    jax_steps, port_steps, port_events = trajectories
+    (j, _), t = jax_steps[-1], port_steps[-1]
+    np.testing.assert_array_equal(t.bodies.awake, j.bodies.awake)
+    assert not (t.bodies.awake & (t.bodies.body_type == 2)).any()  # all boxes sleep
+    assert port_events[-1].host_syncs == 1        # the all-asleep skip
+    np.testing.assert_allclose(t.bodies.c, j.bodies.c, rtol=0, atol=2e-5)
+
+
+def test_helloworld_freefall_exact():
+    st = tscenes.hello_world()
+    ref = [json.loads(line) for line in open(GOLDEN / "helloworld_60.jsonl")]
+    roll = make_rollout(1, velocity_iterations=6, position_iterations=2,
+                        continuous=False)
+    for i in range(40):   # pure free fall, well before impact
+        st = roll(st, DT)
+        rb = ref[i]["bodies"][0]
+        p = st.bodies.xf_p[0, 1].numpy()
+        assert abs(p[1] - rb[1]) < 1e-6, f"step {i}"
+
+
+def test_continuous_and_unported_features_raise():
+    st = tscenes.pyramid(2)
+    with pytest.raises(NotImplementedError, match="TOI"):
+        tworld.step_batched(st, DT)
+    with pytest.raises(NotImplementedError, match="TOI"):
+        tworld.step(st, DT)
+    st, ev = tworld.step(st, DT, continuous=False)
+    assert ev.host_syncs >= 1
+    with pytest.raises(NotImplementedError, match="joints"):
+        tworld.WorldBuilder().create_revolute_joint(0, 1, (0.0, 0.0))
+    with pytest.raises(NotImplementedError, match="hooks"):
+        tworld.step_batched(st, DT, continuous=False,
+                            filter_fn=lambda s, i, j: True)
