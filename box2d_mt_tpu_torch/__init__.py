@@ -1,18 +1,19 @@
 """box2d_mt_tpu_torch — the PyTorch / CUDA port of box2d_mt_tpu.
 
-A batched 2D rigid-body engine on tensors with a leading world axis. This
-slice runs the contact-only step (`continuous=False`) of polygon/edge
-worlds such as `models.scenes.pyramid`; its solve middle is a CUDA kernel
-for Hopper (csrc/solve_middle.cu) with a plain PyTorch version for CPU
-tensors. Quick start::
+A batched 2D rigid-body engine on tensors with a leading world axis. It
+runs the step of polygon/edge worlds such as `models.scenes.pyramid`,
+continuous collision included; its solve middle and its time of impact
+are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu), each with
+a plain PyTorch version for CPU tensors. States are built on the card
+unless the caller passes another `device`. Quick start::
 
     from box2d_mt_tpu_torch import step_batched
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.state import replicate
 
-    states = replicate(scenes.pyramid(10, device="cuda"), 512)
+    states = replicate(scenes.pyramid(10), 512)
     for _ in range(60):
-        states, events = step_batched(states, 1 / 60, continuous=False)
+        states, events = step_batched(states, 1 / 60)
 """
 
 from . import math2d, settings, shapes, state

@@ -9,7 +9,17 @@
 // impulses and min separation to slot order. The argument contract and the
 // plain PyTorch version it is held against are in ops/solve_middle.py.
 //
-// What bounds it on an H100: not flops (a lane is ~200 flops) but latency —
+// Its bound on an H100 (the least time for this work): bytes. The kernel
+// needs the blob rows, perm and dyn_ab entries of the solved lanes only
+// (color_start[:, -1] a world), the body planes in and out, and the
+// (W, 5, C) aux out. At 512 x pyramid(10) (C = 256 contact slots, 100
+// solved a world, N = 64 bodies) that is 15.0 MB: 4.47 us at 3.35 TB/s,
+// against ~1 us for its flops (about 130 per solved lane per velocity
+// iteration and 260 per position iteration, at 67 TFLOP/s in f32).
+// chip_smoke.py computes it from each run's inputs. No single PyTorch call
+// computes the same function.
+//
+// What holds it back on an H100: not flops (a lane is ~200 flops) but latency —
 // every color pass ends in a block barrier, so a sweep costs about
 // (colors x barrier + one dependent chain of shared-memory reads) per
 // world, and worlds only overlap each other. The design keeps the body

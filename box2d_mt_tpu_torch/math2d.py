@@ -22,6 +22,36 @@ def rot_vec(q, v):
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
 
 
+def rot_t_vec(q, v):
+    """b2MulT(q, v) (b2Math.h:457-460): inverse-rotate v by q."""
+    s, c = q[..., 0], q[..., 1]
+    x, y = v[..., 0], v[..., 1]
+    return torch.stack([c * x + s * y, -s * x + c * y], dim=-1)
+
+
+def dot(a, b):
+    """b2Dot (b2Math.h:396)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def normalize(v, eps=1.1754943508222875e-38):
+    """b2Vec2::Normalize (b2Math.h:98-110): (unit, length); vectors shorter
+    than `eps` normalize to zero."""
+    ln = torch.sqrt(dot(v, v))
+    small = ln < eps
+    safe = torch.where(small, 1.0, ln)
+    return torch.where(small[..., None], 0.0, v / safe[..., None]), ln
+
+
+def sweep_get_transform(local_center, c0, c, a0, a, beta):
+    """b2Sweep::GetTransform (b2Math.h:645-656): the transform at fraction
+    beta between (c0, a0) and (c, a), shifted by the local center."""
+    pos = (1.0 - beta)[..., None] * c0 + beta[..., None] * c
+    angle = (1.0 - beta) * a0 + beta * a
+    q = rot_from_angle(angle)
+    return pos - rot_vec(q, local_center), q
+
+
 def body_xf(c, a, local_center):
     """Body-origin transform (p, q) from the sweep center and angle."""
     q = rot_from_angle(a)

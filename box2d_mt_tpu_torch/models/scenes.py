@@ -1,13 +1,14 @@
-"""Scenes of the contact-only slice, built with the port alone.
+"""Scenes built with the port alone.
 
 Same construction as `box2d_mt_tpu.models.scenes`, so the frozen states of
-the two packages are equal field by field."""
+the two packages are equal field by field. States land on the card unless
+the caller passes another `device` (the tests pass device="cpu")."""
 
 from .. import settings, shapes
 from ..world import WorldBuilder
 
 
-def hello_world(device="cpu"):
+def hello_world(device="cuda"):
     """HelloWorld.cpp:28-81 — ground box + one falling dynamic box."""
     wb = WorldBuilder(gravity=(0.0, -10.0))
     ground = wb.create_body(position=(0.0, -10.0))
@@ -18,7 +19,7 @@ def hello_world(device="cpu"):
     return wb.freeze(device=device)
 
 
-def pyramid(rows=10, device="cpu"):
+def pyramid(rows=10, device="cuda"):
     """Testbed/Tests/Pyramid.h — the classic stacking benchmark."""
     wb = WorldBuilder(gravity=(0.0, -10.0))
     ground = wb.create_body()

@@ -475,6 +475,59 @@ CORE_COLLIDERS = {
 }
 
 
+class ShapeRows(NamedTuple):
+    """Fixtures' shape data as gathered from the Fixtures table, one row
+    per lane."""
+    verts: torch.Tensor    # (L, 8, 2)
+    normals: torch.Tensor  # (L, 8, 2)
+    nverts: torch.Tensor   # (L,) i32
+    ghosts: torch.Tensor   # (L, 2) bool
+    radius: torch.Tensor   # (L,)
+
+
+def collide(kind, a: ShapeRows, pA, qA, b: ShapeRows, pB, qB,
+            kinds=ALL_KINDS) -> Manifold:
+    """Each lane's manifold from its own kind's collider (the JAX package's
+    per-pair `collide`, ops/narrowphase.py:789-808, over lanes): kind (L,),
+    transforms p (L, 2), q (L, 2) of (sin, cos).
+
+    As there, with a single kind in `kinds` every lane takes that
+    collider's manifold with the count zeroed off that kind; with several,
+    a lane of a kind outside `kinds` gets the empty manifold. Only the
+    ported colliders (polygon-polygon, edge-polygon) run: a pair of any
+    other kind is refused by the step's collide phase (`world._collide_b`)
+    before it can reach a caller of this function."""
+    kinds = tuple(k for k in kinds if k != KIND_INVALID)
+    la = lanes_from_rows(*a)
+    lb = lanes_from_rows(*b)
+    xa = (pA[:, 0], pA[:, 1], qA[:, 0], qA[:, 1])
+    xb = (pB[:, 0], pB[:, 1], qB[:, 0], qB[:, 1])
+
+    def run(k):
+        return lanes_to_manifold(CORE_COLLIDERS[k](la, *xa, lb, *xb))
+
+    ported = [k for k in kinds if k in CORE_COLLIDERS]
+    if len(kinds) == 1:
+        if not ported:
+            raise NotImplementedError(
+                f"collide: contact kind {kinds[0]} has no ported collider")
+        man = run(ported[0])
+        return man._replace(count=torch.where(kind == kinds[0], man.count, 0))
+    n = kind.shape[0]
+    zi = torch.zeros(n, dtype=torch.int32, device=kind.device)
+    zf = torch.zeros((n, 2), device=kind.device)
+    man = Manifold(mtype=zi, local_point=zf, local_normal=zf,
+                   points=torch.zeros((n, 2, 2), device=kind.device),
+                   ids=torch.zeros((n, 2), dtype=torch.int32, device=kind.device),
+                   count=zi)
+    for k in ported:
+        mk = run(k)
+        sel = kind == k
+        man = Manifold(*(torch.where(sel.reshape((n,) + (1,) * (new.dim() - 1)), new, old)
+                         for new, old in zip(mk, man)))
+    return man
+
+
 def contact_kind(type_a, type_b):
     """Map a (role-ordered) shape-type pair to a collider kind."""
     c, e, p = settings.SHAPE_CIRCLE, settings.SHAPE_EDGE, settings.SHAPE_POLYGON

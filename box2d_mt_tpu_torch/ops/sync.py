@@ -20,6 +20,11 @@ class HostSyncs:
         self.count += 1
         return bool(t)
 
+    def value(self, t: torch.Tensor) -> int:
+        """One integer, such as a data-dependent loop bound."""
+        self.count += 1
+        return int(t)
+
     def flags(self, *ts: torch.Tensor) -> list:
         """Several scalar predicates in a single transfer."""
         self.count += 1

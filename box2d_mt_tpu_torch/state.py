@@ -193,7 +193,7 @@ _TOP = ("gravity", "inv_dt0", "pairs_dirty")
 
 
 def make_empty_cache(nb: int, nc: int, nj: int, n_worlds: int = 1,
-                     device="cpu") -> SolverCache:
+                     device="cuda") -> SolverCache:
     nj = max(nj, 1)
     kw = dict(device=device)
     return SolverCache(
@@ -234,9 +234,10 @@ def _check_no_joints(joints) -> None:
                 f"'{f.name}' joint block")
 
 
-def state_from_numpy(obj, device="cpu") -> State:
+def state_from_numpy(obj, device="cuda") -> State:
     """Copy a state whose leaves are numpy arrays (or anything
-    `np.asarray` accepts) into a `State` of tensors on `device`.
+    `np.asarray` accepts) into a `State` of tensors on `device` (the card
+    unless the caller asks for another).
 
     `obj` needs only the JAX package's field names, so
     `jax.tree.map(np.asarray, jax_state)` carries a JAX state across. The

@@ -1,4 +1,4 @@
-"""World construction and the batched step, contact-only slice.
+"""World construction and the batched step.
 
 Port of `box2d_mt_tpu.world`: `WorldBuilder` (b2World::CreateBody,
 b2Body::CreateFixture) packs host shapes into a batched `State` of
@@ -13,13 +13,16 @@ a batch of worlds, in the JAX package's phase order:
      kernel on a card); sleep (`_post_sleep_sync`).
   3. Synchronize fat AABBs, refresh the pair table and carry warm-start
      state over (`_post_solve_b`).
+  4. Continuous collision (`continuous=True`): behind a body-motion
+     pre-gate, rounds of per-lane time of impact (CUDA kernel on a card)
+     and disjoint TOI sub-steps with mini islands (`_solve_toi_b`).
 
 Each `lax.cond` / `lax.while_loop` predicate of the JAX program is read
 back to the host here; `Events.host_syncs` counts those reads per step.
 
-Not ported yet, and refused rather than skipped: continuous collision
-(`continuous=True`), joints, sensors, the circle colliders, the
-pre-solve/filter hooks, and the grid pair finder (above 1024 fixtures).
+Not ported yet, and refused rather than skipped: joints, sensors, the
+circle colliders, the pre-solve/filter hooks, and the grid pair finder
+(above 1024 fixtures).
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ import numpy as np
 import torch
 
 from . import settings, shapes
-from .math2d import body_xf, take
-from .ops import broadphase, coloring, integrate, islands
+from .math2d import body_xf, rot_from_angle, rot_vec, take
+from .ops import broadphase, coloring, distance, integrate, islands
 from .ops import narrowphase as nph
 from .ops import solver as csolver
 from .ops.solve_middle import solve_middle
+from .ops.toi import time_of_impact_lanes
 from .ops.sync import HostSyncs
 from .state import (Bodies, Contacts, Fixtures, Joints, SolverCache, State,
                     make_empty_cache)
@@ -55,7 +59,7 @@ class Events(NamedTuple):
     normal_impulse: torch.Tensor   # (W,C,2) PostSolve impulses
     tangent_impulse: torch.Tensor  # (W,C,2)
     touching: torch.Tensor       # (W,C) bool
-    toi_begin: torch.Tensor      # (W,C) bool (no TOI phase yet: all False)
+    toi_begin: torch.Tensor      # (W,C) bool TOI-created touches (toi_f_a/b basis)
     toi_f_a: torch.Tensor        # (W,C) i32 refreshed pair fixtures
     toi_f_b: torch.Tensor
     host_syncs: int              # device-to-host predicate reads this step
@@ -367,6 +371,629 @@ def _post_solve_b(states: State, pre: _PreSolve, dt: float, allow_sleep,
     return new_state, events
 
 
+# --------------------------------------------------------------------------
+# continuous collision (the TOI phase)
+# --------------------------------------------------------------------------
+
+
+def _add_rows(target, idx, delta):
+    """target (W, N, K) + the sum of delta (W, M, K) rows at idx (W, M).
+    The deltas are summed first (into zeros, in lane order: index_put_
+    with accumulate is sequential on a CPU and sort-based, so ordered and
+    deterministic, on a card) and then added, as the JAX package's one-hot
+    scatter_add does; a row hit by one lane gets exactly its delta."""
+    nw, n = target.shape[:2]
+    rows = (idx.long() + n * torch.arange(nw, device=idx.device)[:, None]).reshape(-1)
+    acc = torch.zeros((nw * n,) + target.shape[2:], dtype=target.dtype,
+                      device=target.device)
+    acc.index_put_((rows,), delta.reshape((-1,) + target.shape[2:]), accumulate=True)
+    return target + acc.reshape(target.shape)
+
+
+def _min_at(n, idx, vals):
+    """(W, n) minimum of vals (W, M) scattered at idx (W, M), +inf where
+    nothing lands (scatter_min_scalar)."""
+    out = torch.full((idx.shape[0], n), math.inf, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce_(1, idx.long(), vals, "amin")
+
+
+def _any_at(n, idx, flags):
+    """(W, n) bool: some lane with a True flag has its index here."""
+    out = torch.zeros((idx.shape[0], n + 1), dtype=torch.bool, device=idx.device)
+    out.scatter_(1, torch.where(flags, idx.long(), n), True)
+    return out[:, :n]
+
+
+def _shape_rows(fx: Fixtures, idx, rmax):
+    """Per-lane fixture data at fixture slots idx (W, K)."""
+    return dict(verts=take(fx.verts, idx), normals=take(fx.normals, idx),
+                nverts=take(fx.nverts, idx), radius=take(fx.radius, idx),
+                friction=take(fx.friction, idx),
+                restitution=take(fx.restitution, idx),
+                shape_type=take(fx.shape_type, idx), rmax=take(rmax, idx),
+                ghosts=take(fx.ghosts, idx))
+
+
+def _advance_sweep(alpha, c0, c, a0, a, alpha0):
+    """b2Sweep::Advance of a sweep (c0, a0 at alpha0 -> c, a) to `alpha`:
+    the new sweep start."""
+    beta = (alpha - alpha0) / torch.where(alpha0 < 1.0, 1.0 - alpha0, 1.0)
+    return c0 + beta[..., None] * (c - c0), a0 + beta * (a - a0)
+
+
+def _sweep_rows(lc, c0, c, a0, a):
+    """(W, K) lanes' sweeps as the time-of-impact kernel's (8, L) rows."""
+    return torch.stack([lc[..., 0], lc[..., 1], c0[..., 0], c0[..., 1],
+                        c[..., 0], c[..., 1], a0, a], 0).reshape(8, -1)
+
+
+def _mix(contacts: Contacts, s_a, s_b, slots):
+    """Friction and restitution of lanes at contact slots, with the
+    per-contact overrides (b2MixFriction, b2MixRestitution)."""
+    fric = torch.sqrt(s_a["friction"] * s_b["friction"])
+    fo = take(contacts.friction_override, slots)
+    rest = torch.maximum(s_a["restitution"], s_b["restitution"])
+    ro = take(contacts.restitution_override, slots)
+    return torch.where(fo >= 0.0, fo, fric), torch.where(ro >= 0.0, ro, rest)
+
+
+def _flat(x):
+    return x.reshape((-1,) + x.shape[2:])
+
+
+def _collide_lanes(kind, sa, pA, qA, sb, pB, qB, kinds) -> nph.Manifold:
+    """nph.collide over (W, K) lanes."""
+    nw = kind.shape[0]
+
+    def rows(s):
+        return nph.ShapeRows(*(_flat(s[k]) for k in
+                               ("verts", "normals", "nverts", "ghosts", "radius")))
+
+    man = nph.collide(_flat(kind), rows(sa), _flat(pA), _flat(qA),
+                      rows(sb), _flat(pB), _flat(qB), kinds)
+    return nph.Manifold(*(x.reshape((nw, -1) + x.shape[1:]) for x in man))
+
+
+def _integrate_lane(cx, cy, a_, vx, vy, w_, movable, h):
+    """The rest of the step for a TOI body (b2Island::SolveTOI's
+    integration, b2Island.cpp:489-523) with the translation/rotation
+    clamps."""
+    t2 = h * h * (vx ** 2 + vy ** 2)
+    rat = torch.where(t2 > settings.MAX_TRANSLATION_SQUARED,
+                      settings.MAX_TRANSLATION / torch.sqrt(torch.clamp_min(t2, 1e-30)),
+                      1.0)
+    vx = vx * rat
+    vy = vy * rat
+    rot = h * w_
+    ratr = torch.where(rot * rot > settings.MAX_ROTATION_SQUARED,
+                       settings.MAX_ROTATION / torch.abs(torch.where(rot == 0.0, 1.0, rot)),
+                       1.0)
+    w_ = w_ * ratr
+    return (torch.where(movable, cx + h * vx, cx), torch.where(movable, cy + h * vy, cy),
+            torch.where(movable, a_ + h * w_, a_), vx, vy, w_)
+
+
+def _velocity_prep(man, cA2, aA2, lcA, ra, cB2, aB2, lcB, rb, mA, mB, iA, iB,
+                   vA, wA, vB, wB, rest):
+    """Velocity-constraint data of (W, K) lanes at a solved pose (centers
+    c, angles a), no warm start (b2ContactSolver's constructor +
+    InitializeVelocityConstraints, b2ContactSolver.cpp:142-249). Returns the
+    arguments velocity_contact_math_s takes after the masses."""
+    qA2 = rot_from_angle(aA2)
+    qB2 = rot_from_angle(aB2)
+    normal, pts, _ = csolver.world_manifold(
+        man.mtype, man.local_point, man.local_normal, man.points, man.count,
+        cA2 - rot_vec(qA2, lcA), qA2, ra, cB2 - rot_vec(qB2, lcB), qB2, rb)
+    r_a = pts - cA2[:, :, None, :]
+    r_b = pts - cB2[:, :, None, :]
+    nx, ny = normal[..., 0], normal[..., 1]
+    rn_a = r_a[..., 0] * ny[..., None] - r_a[..., 1] * nx[..., None]
+    rn_b = r_b[..., 0] * ny[..., None] - r_b[..., 1] * nx[..., None]
+    k_n = (mA + mB)[..., None] + iA[..., None] * rn_a ** 2 + iB[..., None] * rn_b ** 2
+    nm = torch.where(k_n > 0.0, 1.0 / torch.where(k_n > 0.0, k_n, 1.0), 0.0)
+    tx, ty = ny, -nx
+    rt_a = r_a[..., 0] * ty[..., None] - r_a[..., 1] * tx[..., None]
+    rt_b = r_b[..., 0] * ty[..., None] - r_b[..., 1] * tx[..., None]
+    k_t = (mA + mB)[..., None] + iA[..., None] * rt_a ** 2 + iB[..., None] * rt_b ** 2
+    tm = torch.where(k_t > 0.0, 1.0 / torch.where(k_t > 0.0, k_t, 1.0), 0.0)
+    dvx = (vB[..., 0:1] - wB[..., None] * r_b[..., 1]
+           - vA[..., 0:1] + wA[..., None] * r_a[..., 1])
+    dvy = (vB[..., 1:2] + wB[..., None] * r_b[..., 0]
+           - vA[..., 1:2] - wA[..., None] * r_a[..., 0])
+    v_rel = dvx * nx[..., None] + dvy * ny[..., None]
+    bias = torch.where(v_rel < -settings.VELOCITY_THRESHOLD,
+                       -rest[..., None] * v_rel, 0.0)
+    k11 = k_n[..., 0]
+    k22 = k_n[..., 1]
+    k12 = mA + mB + iA * rn_a[..., 0] * rn_a[..., 1] + iB * rn_b[..., 0] * rn_b[..., 1]
+    det = k11 * k22 - k12 * k12
+    well = k11 * k11 < 1000.0 * det
+    pc2 = torch.where((man.count == 2) & ~well, 1, man.count)
+    inv_det = torch.where(det != 0.0, 1.0 / torch.where(det != 0.0, det, 1.0), 0.0)
+    return (nx, ny,
+            (r_a[..., 0, 0], r_a[..., 1, 0]), (r_a[..., 0, 1], r_a[..., 1, 1]),
+            (r_b[..., 0, 0], r_b[..., 1, 0]), (r_b[..., 0, 1], r_b[..., 1, 1]),
+            (nm[..., 0], nm[..., 1]), (tm[..., 0], tm[..., 1]),
+            (bias[..., 0], bias[..., 1]),
+            k11, k12, k22, inv_det * k22, -inv_det * k12, inv_det * k11, pc2)
+
+
+def _position_args(man, sa, sb, lcA, lcB):
+    """position_contact_math_s's per-lane constants of a manifold."""
+    return (sa["radius"], sb["radius"], lcA[..., 0], lcA[..., 1], lcB[..., 0],
+            lcB[..., 1], man.local_point[..., 0], man.local_point[..., 1],
+            man.local_normal[..., 0], man.local_normal[..., 1],
+            (man.points[..., 0, 0], man.points[..., 1, 0]),
+            (man.points[..., 0, 1], man.points[..., 1, 1]))
+
+
+def _body_rmax(fx: Fixtures, nb):
+    """Per-fixture and per-body bounding radius about the body origin."""
+    valid8 = torch.arange(8, device=fx.nverts.device) < fx.nverts[..., None]
+    vlen = torch.sqrt((fx.verts ** 2).sum(-1))
+    f_rmax = torch.where(valid8, vlen, 0.0).amax(-1) + fx.radius
+    idx = torch.where(fx.body >= 0, fx.body, nb).long()
+    b_rmax = torch.zeros((f_rmax.shape[0], nb + 1), device=f_rmax.device)
+    b_rmax.scatter_reduce_(1, idx, torch.where(fx.body >= 0, f_rmax, 0.0), "amax")
+    return f_rmax, b_rmax[:, :nb]
+
+
+def _solve_toi_b(states: State, dt: float, velocity_iterations: int,
+                 toi_rounds: int, kinds, toi_capacity: int, toi_neighbors: bool,
+                 toi, syncs: HostSyncs):
+    """Continuous physics over a batch of worlds (b2World::SolveTOI,
+    b2World.cpp:1026-1093), as the JAX package restructures it
+    (box2d_mt_tpu/world.py:981-1946):
+
+      * candidate compaction: TOI candidates (b2Contact::IsToiCandidate)
+        with an awake non-static endpoint, actives first in slot order, the
+        first `toi_capacity` per world; the rest count in toi_overflow;
+      * rounds: every running lane's time of impact (`toi`, the kernel),
+        then all disjoint earliest events at once (per non-static body the
+        earliest alpha wins, ties by contact slot);
+      * the sub-step of each selected pair: advance to alpha, re-evaluate
+        the manifold (restore-and-skip when empty), pull in the TOI bodies'
+        other contacts as a mini island (`toi_neighbors`), 20 TOI position
+        passes, a velocity solve without warm start, the rest of the step,
+        and the commit of kept dynamic neighbors.
+
+    The deviations PARITY.md lists (TOI mini island, no pair refresh after
+    TOI moves, TOI begin events on the refreshed table's slots) are
+    reproduced as they are. Returns (state, toi_overflow (W,), toi_begin
+    (W, C))."""
+    bodies, fx, contacts = states.bodies, states.fixtures, states.contacts
+    nw, nb = bodies.body_type.shape
+    nc = contacts.capacity
+    dev = bodies.c.device
+    kcap = min(toi_capacity, nc)
+    static, dynamic = settings.STATIC_BODY, settings.DYNAMIC_BODY
+
+    ia = contacts.f_a.clamp_min(0).long()
+    ib = contacts.f_b.clamp_min(0).long()
+    pair_exists = contacts.f_a >= 0
+    # ---- candidacy (b2Contact::IsToiCandidate + the awake gate,
+    # b2World.cpp:1534-1541)
+    ba = take(fx.body, ia).clamp_min(0).long()
+    bb = take(fx.body, ib).clamp_min(0).long()
+    sensor = take(fx.is_sensor, ia) | take(fx.is_sensor, ib)
+    thick = take(fx.thick_shape, ia) | take(fx.thick_shape, ib)
+    type_a = take(bodies.body_type, ba)
+    type_b = take(bodies.body_type, bb)
+    bul_a = take(bodies.bullet, ba)
+    bul_b = take(bodies.bullet, bb)
+    both_dyn = (type_a == dynamic) & (type_b == dynamic)
+    awake_pair = ((take(bodies.awake, ba) & (type_a != static))
+                  | (take(bodies.awake, bb) & (type_b != static)))
+    cand = pair_exists & ~sensor & ((bul_a | bul_b) | (~both_dyn & ~thick))
+    active0 = cand & awake_pair
+
+    # ---- compaction: the r-th active slot in slot order goes to lane r;
+    # lanes past the active count take slot 0 and stay off
+    c_rank = torch.cumsum(active0.to(torch.int32), 1) - 1
+    n_active = active0.sum(1)
+    slot_iota = torch.arange(nc, device=dev)
+    sel = torch.zeros((nw, kcap + 1), dtype=torch.long, device=dev)
+    sel.scatter_(1, torch.where(active0 & (c_rank < kcap), c_rank, kcap).long(),
+                 slot_iota.expand(nw, nc))
+    sel = sel[:, :kcap]
+    lane_iota = torch.arange(kcap, device=dev)
+    lane_on = take(active0, sel) & (lane_iota < n_active[:, None])
+    toi_overflow = (n_active - lane_on.sum(1)).to(torch.int32)
+    zero_alpha = dataclasses.replace(bodies, alpha0=torch.zeros_like(bodies.alpha0))
+    if not syncs.flag(lane_on.any()):
+        return (dataclasses.replace(states, bodies=zero_alpha), toi_overflow,
+                torch.zeros_like(contacts.touching))
+
+    kba, kbb = take(ba, sel), take(bb, sel)
+    ns_a = take(type_a, sel) != static
+    ns_b = take(type_b, sel) != static
+    dyn_a = take(type_a, sel) == dynamic
+    dyn_b = take(type_b, sel) == dynamic
+    kbab = torch.cat([kba, kbb], 1)
+
+    f_rmax, _ = _body_rmax(fx, nb)
+    sa = _shape_rows(fx, take(ia, sel), f_rmax)
+    sb = _shape_rows(fx, take(ib, sel), f_rmax)
+    kind = nph.contact_kind(sa["shape_type"], sb["shape_type"])
+    lane_ts = take(contacts.tangent_speed, sel)
+
+    fric, rest = _mix(contacts, sa, sb, sel)
+    mA = torch.where(dyn_a, take(bodies.inv_mass, kba), 0.0)
+    iA = torch.where(dyn_a, take(bodies.inv_inertia, kba), 0.0)
+    lcA = take(bodies.local_center, kba)
+    mB = torch.where(dyn_b, take(bodies.inv_mass, kbb), 0.0)
+    iB = torch.where(dyn_b, take(bodies.inv_inertia, kbb), 0.0)
+    lcB = take(bodies.local_center, kbb)
+    verts_a = _flat(sa["verts"]).permute(2, 1, 0).contiguous()
+    verts_b = _flat(sb["verts"]).permute(2, 1, 0).contiguous()
+    t_max = torch.ones(nw * kcap, device=dev)
+
+    # packed body state: [cx, cy, a, c0x, c0y, a0, alpha0, vx, vy, w, awake]
+    bp = torch.cat([bodies.c, bodies.a[..., None], bodies.c0, bodies.a0[..., None],
+                    torch.zeros((nw, nb, 1), device=dev), bodies.v,
+                    bodies.w[..., None], bodies.awake.to(torch.float32)[..., None]], -1)
+    lane_tc0 = take(contacts.toi_count, sel).to(torch.float32)
+    lane_tc = lane_tc0
+    lane_touch = torch.zeros((nw, kcap), dtype=torch.bool, device=dev)
+    ntouch = torch.zeros((nw, nc), dtype=torch.bool, device=dev)
+
+    for _ in range(toi_rounds):
+        ga, gb = take(bp, kba), take(bp, kbb)
+        cA, aA, c0A, a0A, al0A = ga[..., 0:2], ga[..., 2], ga[..., 3:5], ga[..., 5], ga[..., 6]
+        vA, wA, awA = ga[..., 7:9], ga[..., 9], ga[..., 10] > 0.5
+        cB, aB, c0B, a0B, al0B = gb[..., 0:2], gb[..., 2], gb[..., 3:5], gb[..., 5], gb[..., 6]
+        vB, wB, awB = gb[..., 7:9], gb[..., 9], gb[..., 10] > 0.5
+        blocked = lane_tc >= settings.MAX_SUB_STEPS
+        al0 = torch.maximum(al0A, al0B)
+
+        # sync both sweeps to the later alpha0 (the b2TimeOfImpact preamble)
+        c0As, a0As = _advance_sweep(al0, c0A, cA, a0A, aA, al0A)
+        c0Bs, a0Bs = _advance_sweep(al0, c0B, cB, a0B, aB, al0B)
+        # relative motion bound over the remaining window: a pair moving
+        # less than half a slop cannot tunnel this step
+        dmov = (cA - c0As) - (cB - c0Bs)
+        mb = (torch.sqrt((dmov ** 2).sum(-1)) + torch.abs(aA - a0As) * sa["rmax"]
+              + torch.abs(aB - a0Bs) * sb["rmax"])
+        awake_now = (awA & ns_a) | (awB & ns_b)
+        run = (lane_on & ~blocked & awake_now & (al0 < 1.0)
+               & (mb > 0.5 * settings.LINEAR_SLOP))
+
+        tstate, t = toi(verts_a, _flat(sa["nverts"]), _flat(sa["radius"]),
+                        _sweep_rows(lcA, c0As, cA, a0As, aA),
+                        verts_b, _flat(sb["nverts"]), _flat(sb["radius"]),
+                        _sweep_rows(lcB, c0Bs, cB, a0Bs, aB), t_max, _flat(run).contiguous())
+        tstate = tstate.reshape(nw, kcap)
+        t = t.reshape(nw, kcap)
+        alpha = torch.where(tstate == distance.TOI_TOUCHING,
+                            torch.clamp_max(al0 + (1.0 - al0) * t, 1.0), 1.0)
+        alpha = torch.where(run, alpha, math.inf)
+        has_ev = alpha < 1.0 - 10.0 * 1.1920929e-7
+
+        # ---- disjoint selection: per non-static body the earliest alpha
+        # wins, ties by canonical contact slot (ToiLessThan analog)
+        eidx = torch.cat([torch.where(ns_a & has_ev, kba, nb),
+                          torch.where(ns_b & has_ev, kbb, nb)], 1)
+        av = torch.where(has_ev, alpha, math.inf)
+        amin = _min_at(nb + 1, eidx, torch.cat([av, av], 1))
+        win1 = (has_ev & (~ns_a | (alpha <= take(amin, kba)))
+                & (~ns_b | (alpha <= take(amin, kbb))))
+        selp = sel.to(torch.float32)
+        sv = torch.where(win1, selp, math.inf)
+        eidx2 = torch.cat([torch.where(ns_a & win1, kba, nb),
+                           torch.where(ns_b & win1, kbb, nb)], 1)
+        smin = _min_at(nb + 1, eidx2, torch.cat([sv, sv], 1))
+        selwin = (win1 & (~ns_a | (selp == take(smin, kba)))
+                  & (~ns_b | (selp == take(smin, kbb))))
+        alpha_s = torch.where(selwin, alpha, 1.0)
+        lane_tc = lane_tc + selwin.to(torch.float32)
+        if not syncs.flag(selwin.any()):
+            break
+
+        # ---- the sub-step: advance both bodies of each selected pair to
+        # its alpha and re-evaluate the manifold there
+        cAn, aAn = _advance_sweep(alpha_s, c0A, cA, a0A, aA, al0A)
+        cBn, aBn = _advance_sweep(alpha_s, c0B, cB, a0B, aB, al0B)
+        qA1 = rot_from_angle(aAn)
+        qB1 = rot_from_angle(aBn)
+        man = _collide_lanes(kind, sa, cAn - rot_vec(qA1, lcA), qA1,
+                             sb, cBn - rot_vec(qB1, lcB), qB1, kinds)
+        # no manifold at the TOI: restore (skip every write) and mark the
+        # pair consumed (b2World.cpp:928-940)
+        solve = selwin & (man.count > 0)
+
+        if toi_neighbors:
+            island = _MiniIsland(
+                states, bp, ia, ib, ba, bb, type_a, type_b, bul_a, bul_b,
+                pair_exists, sensor, f_rmax, sel, selwin, solve, kba, kbab,
+                ns_a, ns_b, alpha_s, cAn, aAn, cBn, aBn, kinds, syncs)
+
+        # ---- TOI position sub-solve: 20 passes at beta = 0.75
+        pos_args = _position_args(man, sa, sb, lcA, lcB)
+        pos = (cAn[..., 0], cAn[..., 1], aAn, cBn[..., 0], cBn[..., 1], aBn)
+        for _ in range(20):
+            pos = csolver.position_contact_math_s(
+                man.mtype, man.count, mA, mB, iA, iB, *pos_args, *pos, solve,
+                settings.TOI_BAUMGARTE, settings.MAX_LINEAR_CORRECTION)[:6]
+            if toi_neighbors:
+                pos = island.position_passes(pos)
+        cax, cay, aa_, cbx, cby, ab_ = pos
+
+        # ---- velocity sub-solve (no warm start) at the solved pose
+        vel_args = _velocity_prep(
+            man, torch.stack([cax, cay], -1), aa_, lcA, sa["radius"],
+            torch.stack([cbx, cby], -1), ab_, lcB, sb["radius"], mA, mB, iA, iB,
+            vA, wA, vB, wB, rest)
+        if toi_neighbors:
+            island.prepare_velocity(pos, vA, wA, vB, wB)
+        zero = torch.zeros_like(fric)
+        ni, ti = (zero, zero), (zero, zero)
+        vel = (vA[..., 0], vA[..., 1], wA, vB[..., 0], vB[..., 1], wB)
+        for _ in range(velocity_iterations):
+            ni, ti, *vel = csolver.velocity_contact_math_s(
+                fric, lane_ts, mA, mB, iA, iB, *vel_args, ni, ti,
+                *vel, solve)
+            if toi_neighbors:
+                vel = island.velocity_passes(vel)
+        vax, vay, wa_, vbx, vby, wb_ = vel
+
+        # ---- complete the remainder of the step for the pair
+        h = (1.0 - torch.where(selwin, alpha_s, 1.0)) * dt
+        cAfx, cAfy, aAf, vax, vay, wa_ = _integrate_lane(cax, cay, aa_, vax, vay, wa_, ns_a, h)
+        cBfx, cBfy, aBf, vbx, vby, wb_ = _integrate_lane(cbx, cby, ab_, vbx, vby, wb_, ns_b, h)
+
+        def delta(on, cfx, cfy, af, c0fx, c0fy, a0f, vfx, vfy, wf, c_o, a_o, c0_o,
+                  a0_o, al0_o, v_o, w_o, aw_o):
+            d = torch.stack([
+                cfx - c_o[..., 0], cfy - c_o[..., 1], af - a_o,
+                c0fx - c0_o[..., 0], c0fy - c0_o[..., 1], a0f - a0_o,
+                alpha_s - al0_o, vfx - v_o[..., 0], vfy - v_o[..., 1], wf - w_o,
+                (~aw_o).to(torch.float32)], -1)
+            return d * on.to(torch.float32)[..., None]
+
+        # one scatter of body deltas (the selected pairs are disjoint on
+        # non-static bodies, so add == set); leap of faith: the sweep
+        # restarts at the position-solved pose
+        dA = delta(solve & ns_a, cAfx, cAfy, aAf, cax, cay, aa_, vax, vay, wa_,
+                   cA, aA, c0A, a0A, al0A, vA, wA, awA)
+        dB = delta(solve & ns_b, cBfx, cBfy, aBf, cbx, cby, ab_, vbx, vby, wb_,
+                   cB, aB, c0B, a0B, al0B, vB, wB, awB)
+        bp = _add_rows(bp, kbab, torch.cat([dA, dB], 1))
+        if toi_neighbors:
+            bp, ntouch = island.commit(bp, ntouch, h)
+        lane_touch = lane_touch | solve
+
+    # sub-step counts and TOI touches back to contact slots: a sub-step that
+    # found a manifold makes the pair touching now and fires BeginContact
+    # this step (b2World::StepSolveTOI's Contact::Update)
+    tc_add = _add_rows(torch.zeros((nw, nc, 2), device=dev), sel,
+                       torch.stack([lane_tc - lane_tc0,
+                                    lane_touch.to(torch.float32)], -1))
+    toi_touch = (tc_add[..., 1] > 0.5) | ntouch
+    contacts2 = dataclasses.replace(
+        contacts, toi_count=contacts.toi_count + tc_add[..., 0].to(torch.int32),
+        touching=contacts.touching | toi_touch)
+    bodies2 = dataclasses.replace(
+        zero_alpha, c=bp[..., 0:2].contiguous(), a=bp[..., 2].contiguous(),
+        c0=bp[..., 3:5].contiguous(), a0=bp[..., 5].contiguous(),
+        v=bp[..., 7:9].contiguous(), w=bp[..., 9].contiguous(), awake=bp[..., 10] > 0.5)
+    return (dataclasses.replace(states, bodies=bodies2, contacts=contacts2),
+            toi_overflow, toi_touch & ~contacts.touching)
+
+
+class _MiniIsland:
+    """The mini-island expansion of one TOI round (b2World.cpp:895-985):
+    each solved pair pulls its TOI bodies' other contacts into the
+    sub-solve as extra constraints. Admission follows the reference: the
+    neighbor endpoint must be static or kinematic, or a bullet is involved
+    (b2World.cpp:922-928); a neighbor is kept if its manifold at the
+    advanced pose is not empty (b2World.cpp:938-961). In the position
+    passes only the TOI body moves (SolveTOIPositionConstraints,
+    b2ContactSolver.cpp:780-806); the velocity passes use real masses, so
+    dynamic (bullet-admitted) neighbors receive impulses and are committed.
+    Kept neighbors of one parent lane apply in slot order, one rank after
+    another; within a rank a parent has at most one neighbor, so every
+    scatter there has one writer per row."""
+
+    def __init__(self, states, bp, ia, ib, ba, bb, type_a, type_b, bul_a, bul_b,
+                 pair_exists, sensor, f_rmax, sel, selwin, solve, kba, kbab,
+                 ns_a, ns_b, alpha_s, cAn, aAn, cBn, aBn, kinds, syncs):
+        bodies, fx, contacts = states.bodies, states.fixtures, states.contacts
+        nw, nb = bodies.body_type.shape
+        nc = contacts.capacity
+        kcap = sel.shape[1]
+        dev = bp.device
+        dynamic = settings.DYNAMIC_BODY
+        lane_f = torch.arange(kcap, device=dev, dtype=torch.float32).expand(nw, kcap)
+        ends_on = torch.cat([ns_a & solve, ns_b & solve], 1)
+        # body -> owning lane (solved pairs are body-disjoint)
+        body_lane = _min_at(nb + 1, torch.where(ends_on, kbab, nb),
+                            torch.cat([lane_f, lane_f], 1))[:, :nb]
+        self.is_toi_body = body_lane < math.inf
+        tb_a = take(self.is_toi_body, ba)
+        tb_b = take(self.is_toi_body, bb)
+        bullet = bul_a | bul_b
+        adm_a = tb_a & ((type_b != dynamic) | bullet)
+        adm_b = tb_b & ((type_a != dynamic) | bullet)
+        sel_slot = _any_at(nc, sel, selwin)
+        nbm = pair_exists & ~sensor & (adm_a | adm_b) & ~sel_slot
+        parent_f = torch.where(adm_a, take(body_lane, ba), take(body_lane, bb))
+        nsel = torch.sort(torch.where(nbm, 0, 1), dim=1, stable=True).indices[:, :kcap]
+        self.nsel = nsel
+        nl_on = take(nbm, nsel)
+        nba_, nbb_ = take(ba, nsel), take(bb, nsel)
+        n_toi_a = take(adm_a, nsel)                 # the TOI body is endpoint A
+        nparent = take(torch.where(torch.isfinite(parent_f), parent_f, 0.0),
+                       nsel).clamp(0, kcap - 1).long()
+        n_dyn_a = take(type_a, nsel) == dynamic
+        n_dyn_b = take(type_b, nsel) == dynamic
+        self.sna = _shape_rows(fx, take(ia, nsel), f_rmax)
+        self.snb = _shape_rows(fx, take(ib, nsel), f_rmax)
+        nkind = nph.contact_kind(self.sna["shape_type"], self.snb["shape_type"])
+        self.n_ts = take(contacts.tangent_speed, nsel)
+        self.fric, self.rest = _mix(contacts, self.sna, self.snb, nsel)
+
+        inv_m = lambda b: take(bodies.inv_mass, b)
+        inv_i = lambda b: take(bodies.inv_inertia, b)
+        # position pass: only the TOI body moves
+        self.p_mass = (torch.where(n_toi_a & n_dyn_a, inv_m(nba_), 0.0),
+                       torch.where(~n_toi_a & n_dyn_b, inv_m(nbb_), 0.0),
+                       torch.where(n_toi_a & n_dyn_a, inv_i(nba_), 0.0),
+                       torch.where(~n_toi_a & n_dyn_b, inv_i(nbb_), 0.0))
+        # velocity pass: every island body keeps its real inverse mass
+        self.v_mass = (torch.where(n_dyn_a, inv_m(nba_), 0.0),
+                       torch.where(n_dyn_b, inv_m(nbb_), 0.0),
+                       torch.where(n_dyn_a, inv_i(nba_), 0.0),
+                       torch.where(n_dyn_b, inv_i(nbb_), 0.0))
+        self.n_lcA = take(bodies.local_center, nba_)
+        self.n_lcB = take(bodies.local_center, nbb_)
+        self.o_dyn = torch.where(n_toi_a, n_dyn_b, n_dyn_a)
+
+        # tentative advance of the neighbor endpoint to the parent's alpha
+        # (b2Body::Advance; static endpoints are unaffected, c0 == c)
+        self.n_alpha = take(alpha_s, nparent)
+        self.other_body = torch.where(n_toi_a, nbb_, nba_)
+        og = take(bp, self.other_body)
+        o_al0 = og[..., 6]
+        beta_o = (self.n_alpha - o_al0) / torch.where(o_al0 < 1.0, 1.0 - o_al0, 1.0)
+        self.o_ce = og[..., 3:5] + beta_o[..., None] * (og[..., 0:2] - og[..., 3:5])
+        self.o_ae = og[..., 5] + beta_o * (og[..., 2] - og[..., 5])
+        self.og = og
+        self.o_v, self.o_w = og[..., 7:9], og[..., 9]
+
+        # evaluate at the parent lane's advanced pose
+        self.side_a = torch.where(n_toi_a, nba_, nbb_) == take(kba, nparent)
+        adv = torch.cat([cAn, aAn[..., None], cBn, aBn[..., None]], -1)
+        self.n_toi_a, self.nparent = n_toi_a, nparent
+        cA1, aA1, cB1, aB1 = self._poses(self._own(take(adv, nparent)))
+        qA1, qB1 = rot_from_angle(aA1), rot_from_angle(aB1)
+        self.nman = _collide_lanes(nkind, self.sna, cA1 - rot_vec(qA1, self.n_lcA), qA1,
+                                   self.snb, cB1 - rot_vec(qB1, self.n_lcB), qB1, kinds)
+        self.n_keep = nl_on & (self.nman.count > 0) & take(solve, nparent)
+        # rank of each kept neighbor among its parent's, in slot order
+        lane = torch.arange(kcap, device=dev)
+        key = torch.where(self.n_keep, nparent * kcap + lane, torch.iinfo(torch.int32).max)
+        ordered = torch.sort(key, dim=1).values
+        self.n_rank = (torch.searchsorted(ordered, key)
+                       - torch.searchsorted(ordered, nparent * kcap))
+        counts = torch.zeros((nw, kcap), dtype=torch.long, device=dev)
+        counts.scatter_add_(1, nparent, self.n_keep.long())
+        self.max_rank = syncs.value(counts.max())
+        self.pos_args = _position_args(self.nman, self.sna, self.snb,
+                                       self.n_lcA, self.n_lcB)
+
+    def _own(self, lane_vals):
+        """The TOI body's three values out of its parent lane's six."""
+        return torch.where(self.side_a[..., None], lane_vals[..., 0:3], lane_vals[..., 3:6])
+
+    def _poses(self, tpos):
+        """(cA, aA, cB, aB) of the neighbor contacts: the TOI body at
+        `tpos` (W, K, 3), the other endpoint at its tentative advance."""
+        a2 = self.n_toi_a[..., None]
+        return (torch.where(a2, tpos[..., 0:2], self.o_ce),
+                torch.where(self.n_toi_a, tpos[..., 2], self.o_ae),
+                torch.where(a2, self.o_ce, tpos[..., 0:2]),
+                torch.where(self.n_toi_a, self.o_ae, tpos[..., 2]))
+
+    def _scatter_own(self, lanes6, d3):
+        """Add the TOI-body deltas d3 (W, K, 3) into their parents' slot of
+        lanes6 (W, K, 6)."""
+        z3 = torch.zeros_like(d3)
+        d6 = torch.where(self.side_a[..., None], torch.cat([d3, z3], -1),
+                         torch.cat([z3, d3], -1))
+        return _add_rows(lanes6, self.nparent, d6)
+
+    def position_passes(self, pos):
+        """The neighbor constraints against the live TOI-body pose, one
+        rank after another (the neighbor endpoint has zero mass here)."""
+        lane_pos = torch.stack(pos, -1)
+        a = self.n_toi_a
+        for r in range(self.max_rank):
+            act = self.n_keep & (self.n_rank == r)
+            cA, aA, cB, aB = self._poses(self._own(take(lane_pos, self.nparent)))
+            before = (cA[..., 0], cA[..., 1], aA, cB[..., 0], cB[..., 1], aB)
+            after = csolver.position_contact_math_s(
+                self.nman.mtype, self.nman.count, *self.p_mass, *self.pos_args,
+                *before, act, settings.TOI_BAUMGARTE, settings.MAX_LINEAR_CORRECTION)
+            d3 = torch.stack([torch.where(a, after[i] - before[i], after[i + 3] - before[i + 3])
+                              for i in range(3)], -1)
+            lane_pos = self._scatter_own(lane_pos, d3)
+        return tuple(lane_pos.unbind(-1))
+
+    def prepare_velocity(self, pos, vA, wA, vB, wB):
+        """Velocity-constraint data at the position-solved TOI-body pose,
+        with real masses on both endpoints."""
+        cA, aA, cB, aB = self._poses(self._own(torch.stack(pos, -1)))
+        tv0 = self._own(take(torch.stack([vA[..., 0], vA[..., 1], wA, vB[..., 0],
+                                          vB[..., 1], wB], -1), self.nparent))
+        a2 = self.n_toi_a[..., None]
+        nvA0 = torch.where(a2, tv0[..., 0:2], self.o_v)
+        nwA0 = torch.where(self.n_toi_a, tv0[..., 2], self.o_w)
+        nvB0 = torch.where(a2, self.o_v, tv0[..., 0:2])
+        nwB0 = torch.where(self.n_toi_a, self.o_w, tv0[..., 2])
+        self.vel_args = _velocity_prep(
+            self.nman, cA, aA, self.n_lcA, self.sna["radius"],
+            cB, aB, self.n_lcB, self.snb["radius"], *self.v_mass,
+            nvA0, nwA0, nvB0, nwB0, self.rest)
+        zero = torch.zeros_like(self.fric)
+        self.nn, self.nt = (zero, zero), (zero, zero)
+        self.o_vel = (self.o_v[..., 0], self.o_v[..., 1], self.o_w)
+
+    def velocity_passes(self, vel):
+        """The neighbor impulses against the live TOI-body velocity, one
+        rank after another; the other endpoint carries its own velocity
+        copy and receives impulses too."""
+        lane_vel = torch.stack(vel, -1)
+        a = self.n_toi_a
+        for r in range(self.max_rank):
+            act = self.n_keep & (self.n_rank == r)
+            tv = self._own(take(lane_vel, self.nparent))
+            ovx, ovy, ow = self.o_vel
+            before = (torch.where(a, tv[..., 0], ovx), torch.where(a, tv[..., 1], ovy),
+                      torch.where(a, tv[..., 2], ow), torch.where(a, ovx, tv[..., 0]),
+                      torch.where(a, ovy, tv[..., 1]), torch.where(a, ow, tv[..., 2]))
+            self.nn, self.nt, *after = csolver.velocity_contact_math_s(
+                self.fric, self.n_ts, *self.v_mass, *self.vel_args, self.nn, self.nt, *before, act)
+            d3 = torch.stack([torch.where(a, after[i] - before[i], after[i + 3] - before[i + 3])
+                              for i in range(3)], -1)
+            lane_vel = self._scatter_own(lane_vel, d3)
+            self.o_vel = tuple(
+                torch.where(act & a, after[i + 3], torch.where(act & ~a, after[i], o))
+                for i, o in enumerate(self.o_vel))
+        return tuple(lane_vel.unbind(-1))
+
+    def commit(self, bp, ntouch, h):
+        """Kept neighbor contacts become touching (b2World.cpp:955-967);
+        kept dynamic neighbors are written back like the reference's island
+        (b2Island.cpp:489-523): the sweep keeps the tentative advance, the
+        velocity comes from the island solve, the position is integrated
+        over the rest of the step. A body that is itself a TOI body of this
+        round is left to its own pair."""
+        nw, nb = bp.shape[:2]
+        kcap = self.nparent.shape[1]
+        ntouch = ntouch | _any_at(ntouch.shape[1], self.nsel, self.n_keep)
+        og = self.og
+        commit = self.n_keep & self.o_dyn & ~take(self.is_toi_body, self.other_body)
+        o_cfx, o_cfy, o_af, ovx, ovy, ow = _integrate_lane(
+            self.o_ce[..., 0], self.o_ce[..., 1], self.o_ae, *self.o_vel, commit,
+            take(h, self.nparent))
+        # the pose commits once per body (its first kept slot); velocity
+        # deltas add up over slots (a Jacobi sum of the impulses the
+        # reference applies one after another)
+        slot_f = torch.arange(kcap, device=bp.device, dtype=torch.float32).expand(nw, kcap)
+        min_slot = _min_at(nb + 1, torch.where(commit, self.other_body, nb), slot_f)
+        pf = (commit & (slot_f == take(min_slot, self.other_body))).to(torch.float32)
+        cf = commit.to(torch.float32)
+        d_pos = torch.stack([
+            o_cfx - og[..., 0], o_cfy - og[..., 1], o_af - og[..., 2],
+            self.o_ce[..., 0] - og[..., 3], self.o_ce[..., 1] - og[..., 4],
+            self.o_ae - og[..., 5], self.n_alpha - og[..., 6]], -1) * pf[..., None]
+        d_vel = torch.stack([ovx - self.o_v[..., 0], ovy - self.o_v[..., 1],
+                             ow - self.o_w], -1) * cf[..., None]
+        d_awk = (pf * (1.0 - og[..., 10]))[..., None]
+        return _add_rows(bp, self.other_body, torch.cat([d_pos, d_vel, d_awk], -1)), ntouch
+
+
 def possible_kinds(state: State) -> tuple:
     """Host helper: the contact kinds this batch's shape types can produce
     (reads the fixture table once)."""
@@ -396,23 +1023,18 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
                  kinds=nph.ALL_KINDS, toi_capacity=None,
                  pre_solve_fn=None, filter_fn=None,
                  toi_neighbors: bool = True, *,
-                 middle=None) -> Tuple[State, Events]:
+                 middle=None, toi=None) -> Tuple[State, Events]:
     """One world-step over a batch of worlds (leading axis on every State
     leaf), with the JAX package's signature and semantics.
 
-    `continuous=True` (the default, with toi_rounds > 0) needs the TOI
-    phase, which is not ported yet: it raises NotImplementedError instead
-    of skipping the phase; pass continuous=False. `toi_capacity` and
-    `toi_neighbors` only shape that phase. `middle` is the solve-middle
-    implementation (default `ops.solve_middle.solve_middle`: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors);
-    `solve_middle_plain` runs the plain path on a card for comparison."""
-    del toi_capacity, toi_neighbors
-    if continuous and toi_rounds > 0:
-        raise NotImplementedError(
-            "continuous=True needs the TOI phase (_solve_toi_b with the "
-            "time-of-impact kernel), which is not ported yet; pass "
-            "continuous=False")
+    `continuous=True` (the default, with toi_rounds > 0) runs the TOI
+    phase after the pair refresh; `toi_capacity` (default max(32, C // 8))
+    caps its lanes per world and `toi_neighbors` turns its mini islands on.
+    `middle` and `toi` are the solve-middle and time-of-impact
+    implementations (defaults `ops.solve_middle.solve_middle` and
+    `ops.toi.time_of_impact_lanes`: the CUDA kernels for CUDA tensors, the
+    plain versions for CPU tensors); `solve_middle_plain` and
+    `time_of_impact_lanes_plain` run the plain path on a card."""
     if pre_solve_fn is not None or filter_fn is not None:
         raise NotImplementedError("the pre-solve and contact-filter hooks "
                                   "are not ported yet")
@@ -421,6 +1043,9 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
             f"max_colors must be in [1, 32] (got {max_colors}): the "
             "large-world coloring tier tracks per-body colors as 32-bit masks")
     middle = middle or solve_middle
+    toi = toi or time_of_impact_lanes
+    if toi_capacity is None:
+        toi_capacity = max(32, states.contacts.capacity // 8)
     dt = float(np.float32(dt))
     syncs = HostSyncs()
     nc = states.contacts.capacity
@@ -452,7 +1077,35 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
     new_state, events = _step_active(
         states, dt, velocity_iterations, position_iterations, warm_starting,
         allow_sleep, max_colors, kinds, middle, syncs)
+    if continuous and toi_rounds > 0:
+        new_state, toi_overflow, toi_begin = _continuous(
+            new_state, dt, velocity_iterations, toi_rounds, kinds,
+            toi_capacity, toi_neighbors, toi, syncs)
+        # TOI touches index the refreshed pair table, so they go out on
+        # their own slot basis (toi_begin with toi_f_a/toi_f_b)
+        events = events._replace(toi_overflow=toi_overflow, toi_begin=toi_begin)
     return new_state, events._replace(host_syncs=syncs.count)
+
+
+def _continuous(states: State, dt: float, velocity_iterations, toi_rounds,
+                kinds, toi_capacity, toi_neighbors, toi, syncs: HostSyncs):
+    """The TOI phase behind the body-motion pre-gate: a TOI event needs a
+    pair moving more than half a linear slop relative to each other, which
+    needs a body moving more than a quarter slop, so when no awake body did
+    this step the phase is skipped (the batched analog of the per-contact
+    skip in b2World.cpp:1534-1541). The alpha0 reset applies either way."""
+    b = states.bodies
+    _, b_rmax = _body_rmax(states.fixtures, b.capacity)
+    lin = torch.sqrt(((b.c - b.c0) ** 2).sum(-1))
+    moving = b.awake & (b.body_type >= 0) & (b.body_type != settings.STATIC_BODY)
+    motion = torch.where(moving, lin + torch.abs(b.a - b.a0) * b_rmax, 0.0)
+    if syncs.flag(motion.max() > 0.25 * settings.LINEAR_SLOP):
+        return _solve_toi_b(states, dt, velocity_iterations, toi_rounds, kinds,
+                            toi_capacity, toi_neighbors, toi, syncs)
+    zw = torch.zeros(states.n_worlds, dtype=torch.int32, device=b.c.device)
+    return (dataclasses.replace(states, bodies=dataclasses.replace(
+        b, alpha0=torch.zeros_like(b.alpha0))), zw,
+        torch.zeros_like(states.contacts.touching))
 
 
 def _step_active(states: State, dt: float, velocity_iterations,
@@ -615,9 +1268,9 @@ class WorldBuilder:
                fixture_capacity: Optional[int] = None,
                contact_capacity: Optional[int] = None,
                joint_capacity: Optional[dict] = None,
-               filter_fn=None, device="cpu") -> State:
-        """Pack into a one-world State on `device`, with the initial fat
-        AABBs and pair table. Capacities default as in the JAX package."""
+               filter_fn=None, device="cuda") -> State:
+        """Pack into a one-world State on `device` (the card unless the
+        caller asks for another), with the initial fat AABBs and pair table. Capacities default as in the JAX package."""
         if joint_capacity:
             raise NotImplementedError("joints are not ported yet")
         if filter_fn is not None:

@@ -2,43 +2,79 @@
 """Smoke run of the PyTorch/CUDA port (box2d_mt_tpu_torch) on one GPU.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs a CUDA
-device and the CUDA toolkit (nvcc), builds the port's kernel from
-`box2d_mt_tpu_torch/csrc/`, and runs these phases, raising on any failure:
+device and the CUDA toolkit (nvcc), builds the port's kernels from
+`box2d_mt_tpu_torch/csrc/` (one nvcc per source, started together), and
+runs these phases with continuous collision on (continuous=True), raising
+on any failure:
 
-  1. card and build: the `nvidia-smi` card line, the kernel build time;
-  2. the solve-middle kernel against its plain PyTorch version on inputs
-     captured from the port's own step (64 x pyramid(10) and
+  1. card and build: the `nvidia-smi` card line, each kernel's build time,
+     registers and spills;
+  2. the solve-middle kernel (K1) against its plain PyTorch version on
+     inputs captured from the port's own step (64 x pyramid(10) and
      16 x pyramid(44) after 30 steps, and 64 x pyramid(10) recolored with
      max_colors=3 so the overflow color's Jacobi path runs): atol 1e-5 on
      positions, 1e-4 on velocities and impulses, equal convergence
      predicate;
-  3. the main path: 512 x pyramid(10) for 60 steps (velocity_iterations=8,
-     position_iterations=3, max_colors=16, continuous=False), counting
-     kernel launches; no NaN, no color overflow, every box above y = 0.4;
-  4. the whole step through the kernel vs through the plain middle on the
-     card, 64 x pyramid(10) for 30 steps (c, a to 2e-5, v to 1e-4, awake
-     equal);
-  5. large worlds: 128 x pyramid(44) (991 boxes) for 20 steps;
-  6. sleep: 64 x pyramid(10) until every body sleeps (at most 300 steps),
+  3. the time-of-impact kernel (K2) against its plain version on lanes
+     captured from the port's step through its `toi=` hook: (a) 64 x
+     pyramid(10) at the step in which the bottom row reaches the ground,
+     (b) 4096 one-box worlds of a fast box against a thin static box
+     (speeds, angles and spins from a numpy seed), (c) the 200 golden lanes
+     of tests/golden/toi.jsonl, (d) all lanes inactive. Rule: every state
+     and every t equal (same arithmetic in the same order, --fmad=false);
+  4. the main path: 512 x pyramid(10) for 60 steps (velocity_iterations=8,
+     position_iterations=3, max_colors=16, continuous=True), counting both
+     kernels' launches; no NaN, no color or TOI overflow, every box above
+     y = 0.4; worlds*steps/s with continuous on and off. The kernels'
+     inputs are recorded through the `middle=`/`toi=` hooks during the
+     run, and afterwards K1 (last step) and K2 (the round with most
+     touching lanes) are held against their plain versions on them;
+  5. the whole step through the kernels vs through the plain versions on
+     the card, 64 x pyramid(10) for 20 steps, through the TOI impact
+     (c, a to 2e-5, v to 1e-4, awake and toi_count equal);
+  6. large worlds: 128 x pyramid(44) (991 boxes) for 20 steps, counting
+     both kernels' launches and holding K1 and K2 against their plain
+     versions on the inputs recorded as in phase 4;
+  7. sleep: 64 x pyramid(10) until every body sleeps (at most 300 steps),
      then one step that must take the all-asleep skip;
-  7. kernel and plain time per call (CUDA events, after warm-up).
+  8. each kernel's time per call against its plain version's (CUDA
+     events, after warm-up) on the main path's recorded inputs, and its
+     bound: the bytes that call must move (K1: the solved lanes' rows;
+     K2: the active lanes' rows and each proxy's own vertices) over the
+     HBM rate, or its f32 operations over the f32 peak, the larger.
 
-The last two lines are the kernels' JSON record and
+The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
 
+import concurrent.futures
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
 DT = 1.0 / 60.0
 MAIN = dict(velocity_iterations=8, position_iterations=3, max_colors=16,
-            continuous=False)
-REPLACES = "box2d_mt_tpu/ops/pallas_solve.py:273"
-SOURCE = "box2d_mt_tpu_torch/csrc/solve_middle.cu"
+            continuous=True)
+ROOT = pathlib.Path(__file__).resolve().parent
+KERNELS = {
+    "solve_middle": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
+                         replaces="box2d_mt_tpu/ops/pallas_solve.py:273"),
+    "toi": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/toi.cu",
+                replaces="box2d_mt_tpu/ops/pallas_toi.py:48"),
+}
+# one NVIDIA H100 SXM (NVIDIA data sheet): HBM rate and f32 peak
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# f32 operations per unit of work, counted from the kernels' source (sinf
+# and cosf as 20 operations each): K1 per solved lane per velocity and per
+# position iteration; K2 per trip of each of its four loops
+K1_OPS_VEL, K1_OPS_POS = 130, 260
+K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
 
 
 def card_line() -> str:
@@ -54,12 +90,12 @@ def batch(rows, n, device):
     return replicate(scenes.pyramid(rows, device=device), n)
 
 
-def roll(states, n_steps, middle=None, check=None):
+def roll(states, n_steps, check=None, **kw):
     """n_steps of the main-path step; `check(states, events)` after each."""
     from box2d_mt_tpu_torch.world import step_batched
     syncs = 0
     for _ in range(n_steps):
-        states, ev = step_batched(states, DT, middle=middle, **MAIN)
+        states, ev = step_batched(states, DT, **dict(MAIN, **kw))
         syncs += ev.host_syncs
         if check is not None:
             check(states, ev)
@@ -87,7 +123,57 @@ def capture_middle(states, max_colors=MAIN["max_colors"]):
     return got["args"], int(ev.color_overflow.max())
 
 
-def compare_middle(args, label):
+def capture_toi(states, n_steps):
+    """Roll up to n_steps; return the lanes of the first time-of-impact
+    call in which some lane reports touching."""
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.world import step_batched
+    got = []
+
+    def hook(*args):
+        out = ktoi.time_of_impact_lanes(*args)
+        if not got and bool((out[0] == 3).any()):
+            got.append(tuple(a.clone() for a in args))
+        return out
+
+    for _ in range(n_steps):
+        states, _ = step_batched(states, DT, toi=hook, **MAIN)
+        if got:
+            return got[0]
+    raise AssertionError(f"no lane reported touching within {n_steps} steps")
+
+
+class Recorder:
+    """`middle=` and `toi=` hooks for step_batched that launch the kernels
+    and keep their arguments (references only: no copy and no host read
+    in the step), so that a run can be held against the plain versions
+    afterwards."""
+
+    def __init__(self):
+        self.middle = None
+        self.toi = []
+
+    def solve_middle(self, *args):
+        from box2d_mt_tpu_torch.ops.solve_middle import solve_middle
+        self.middle = args
+        return solve_middle(*args)
+
+    def time_of_impact(self, *args):
+        from box2d_mt_tpu_torch.ops import toi as ktoi
+        out = ktoi.time_of_impact_lanes(*args)
+        self.toi.append((args, out[0]))
+        return out
+
+    def busiest_toi(self):
+        """The recorded lanes of the call with the most touching lanes,
+        then the most active ones."""
+        if not self.toi:
+            raise AssertionError("no time-of-impact call was recorded")
+        return max(self.toi, key=lambda r: (int((r[1] == 3).sum()),
+                                            int(r[0][-1].sum())))[0]
+
+
+def compare_middle(args, label, phase=2):
     """Kernel vs plain on the same inputs; returns the max abs error."""
     import torch
     from box2d_mt_tpu_torch import settings
@@ -101,7 +187,7 @@ def compare_middle(args, label):
     ok_k = k_aux[:, 4] >= -3.0 * settings.LINEAR_SLOP
     ok_p = p_aux[:, 4] >= -3.0 * settings.LINEAR_SLOP
     lanes = int((args[2][:, -1]).sum())
-    print(f"phase 2 [{label}] lanes solved={lanes} max|diff| pos={err['pos']:.3g} "
+    print(f"phase {phase} K1 [{label}] lanes solved={lanes} max|diff| pos={err['pos']:.3g} "
           f"vel={err['vel']:.3g} impulse={err['impulse']:.3g} "
           f"predicate_equal={bool(torch.equal(ok_k, ok_p))}")
     if lanes == 0:
@@ -113,9 +199,83 @@ def compare_middle(args, label):
     return max(err.values())
 
 
+def compare_toi(args, label, min_touching=0, phase=3):
+    """K2 vs its plain version on the same lanes; returns max |dt|. Both
+    run the same arithmetic in the same order (the kernel is built with
+    --fmad=false), so every state and every t must be equal."""
+    import torch
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    ks, kt = ktoi.time_of_impact_lanes(*args)
+    ps, pt = ktoi.time_of_impact_lanes_plain(*args)
+    torch.cuda.synchronize()
+    n = ks.shape[0]
+    active = int(args[-1].sum())
+    bad = int((ks != ps).sum())
+    touching = int((ks == 3).sum())
+    max_dt = float((kt - pt).abs().max()) if n else 0.0
+    print(f"phase {phase} K2 [{label}] lanes={n} active={active} touching={touching} "
+          f"state mismatches={bad} max|dt|={max_dt:.3g}")
+    if bad != 0 or not torch.equal(kt, pt):
+        raise AssertionError(f"{label}: the TOI kernel disagrees with the plain version")
+    if touching < min_touching:
+        raise AssertionError(f"{label}: {touching} touching lanes, expected >= {min_touching}")
+    return max_dt
+
+
+def golden_lanes(device):
+    """tests/golden/toi.jsonl as time_of_impact_lanes arguments."""
+    import numpy as np
+    import torch
+    rows = [json.loads(line) for line in open(ROOT / "tests/golden/toi.jsonl")]
+    n = len(rows)
+
+    def side(key, sweep_key):
+        verts = np.zeros((2, 8, n), np.float32)
+        sweep = np.zeros((8, n), np.float32)
+        for i, r in enumerate(rows):
+            vs = np.asarray(r[key]["verts"], np.float32)
+            verts[:, :len(vs), i] = vs.T
+            sweep[2:, i] = r[sweep_key]
+        count = np.asarray([len(r[key]["verts"]) for r in rows], np.int32)
+        radius = np.asarray([r[key]["radius"] for r in rows], np.float32)
+        return [torch.from_numpy(x).to(device) for x in (verts, count, radius, sweep)]
+
+    return (*side("a", "sweepA"), *side("b", "sweepB"),
+            torch.ones(n, device=device), torch.ones(n, dtype=torch.bool, device=device))
+
+
+def fast_box_worlds(n, device, seed=0):
+    """n one-box worlds: a 0.2 m box at 60-240 m/s, aimed within 0.3 rad
+    of a thin static box 2 m away, at a random angle and spin."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch import settings, shapes
+    from box2d_mt_tpu_torch.state import replicate
+    from box2d_mt_tpu_torch.world import WorldBuilder
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    wall = wb.create_body(position=(2.0, 0.0))
+    wb.create_fixture(wall, shapes.Polygon.box(0.05, 3.0))
+    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 0.0))
+    wb.create_fixture(box, shapes.Polygon.box(0.1, 0.1), density=1.0)
+    states = replicate(wb.freeze(device=device), n)
+    rng = np.random.default_rng(seed)
+    speed = rng.uniform(60.0, 240.0, n)
+    heading = rng.uniform(-0.3, 0.3, n)
+    vel = np.stack([speed * np.cos(heading), speed * np.sin(heading)], -1)
+    b = states.bodies
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    a = b.a.clone()
+    a[:, box] = t(rng.uniform(0.0, np.pi / 2, n))
+    v = b.v.clone()
+    v[:, box] = t(vel)
+    w = b.w.clone()
+    w[:, box] = t(rng.uniform(-20.0, 20.0, n))
+    return dataclasses.replace(states, bodies=dataclasses.replace(b, a=a, a0=a.clone(), v=v, w=w))
+
+
 def time_call(fn, args, reps=20):
     import torch
-    for _ in range(3):
+    for _ in range(2):
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -128,6 +288,41 @@ def time_call(fn, args, reps=20):
     return start.elapsed_time(stop) / reps
 
 
+def bound(n_bytes, ops):
+    """The least time (ms) the card could take, and what bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bytes(args):
+    """Bytes K1 must move for these inputs, each read or written once: the
+    blob rows, perm and dyn_ab entries of the solved lanes
+    (color_start[:, -1] a world), color_start, the body planes and the
+    movable flags in; the body planes and the (W, 5, C) aux out."""
+    blob, perm, color_start, dyn_ab, vel, pos, movable = args[:7]
+    nw, rows, nc = blob.shape
+    solved = int(color_start[:, -1].sum())
+    planes = (vel.numel() + pos.numel()) * vel.element_size()
+    inputs = (solved * (rows * blob.element_size() + perm.element_size()
+                        + dyn_ab.element_size())
+              + color_start.numel() * color_start.element_size()
+              + planes + movable.numel() * movable.element_size())
+    return inputs + planes + nw * 5 * nc * blob.element_size()
+
+
+def k2_bytes(args):
+    """Bytes K2 must move for these lanes, each read or written once:
+    `active`, `t_max`, the state and t of every lane; for an active lane
+    also both counts, radii and sweep rows, and each proxy's own vertices
+    (count x 2 floats, not the 8 slots)."""
+    va, ca, ra, sa, vb, cb, rb, sb, t_max, active = args
+    n, n_on = active.shape[0], int(active.sum())
+    n_verts = int(ca[active].sum()) + int(cb[active].sum())
+    every = n * (active.element_size() + t_max.element_size() + 4 + 4)
+    per_on = 2 * (ca.element_size() + ra.element_size() + sa.shape[0] * sa.element_size())
+    return every + n_on * per_on + n_verts * 2 * va.element_size()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -136,6 +331,7 @@ def main() -> int:
         return 2
     from box2d_mt_tpu_torch import cuda_build
     from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.world import step_batched
 
     dev = torch.device("cuda", 0)
@@ -143,17 +339,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}  (torch {torch.__version__}, cuda {torch.version.cuda})")
+    t_start = time.perf_counter()
 
-    # ---- 1. build
+    # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
-    info = cuda_build.build("solve_middle")
-    print(f"phase 1 build solve_middle: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info['seconds']:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
+    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall")
+    for name, info in builds.items():
+        print(f"  {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
-    # ---- 2. kernel vs plain on captured inputs
+    # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
     args10, _ = capture_middle(s10)
     args_ovf, overflow = capture_middle(s10, max_colors=3)
@@ -161,69 +360,118 @@ def main() -> int:
         raise AssertionError("max_colors=3 did not overflow the coloring")
     s44, _ = roll(batch(44, 16, dev), 30)
     args44, _ = capture_middle(s44)
-    max_err = max(compare_middle(args10, "64 x pyramid(10)"),
-                  compare_middle(args_ovf, f"64 x pyramid(10), max_colors=3, "
-                                           f"{overflow} overflow lanes/world"),
-                  compare_middle(args44, "16 x pyramid(44)"))
+    err_k1 = max(compare_middle(args10, "64 x pyramid(10)"),
+                 compare_middle(args_ovf, f"64 x pyramid(10), max_colors=3, "
+                                          f"{overflow} overflow lanes/world"),
+                 compare_middle(args44, "16 x pyramid(44)"))
 
-    # ---- 3. the main path
+    # ---- 3. K2 vs plain on captured, golden and inactive lanes
+    lanes_a = capture_toi(batch(10, 64, dev), 30)
+    lanes_b = capture_toi(fast_box_worlds(4096, dev), 1)
+    lanes_c = golden_lanes(dev)
+    lanes_d = (*lanes_c[:-1], torch.zeros_like(lanes_c[-1]))
+    err_k2 = max(
+        compare_toi(lanes_a, "64 x pyramid(10), impact step", min_touching=1),
+        compare_toi(lanes_b, "4096 fast boxes vs a thin wall",
+                    min_touching=int(lanes_b[-1].sum()) // 2 + 1),
+        compare_toi(lanes_c, "200 golden lanes", min_touching=30),
+        compare_toi(lanes_d, "all inactive"))
+    ks, kt = ktoi.time_of_impact_lanes(*lanes_d)
+    if not (bool((ks == 0).all()) and bool((kt == 1.0).all())):
+        raise AssertionError("inactive lanes must return TOI_UNKNOWN and t = t_max")
+
+    # ---- 4. the main path
     def healthy(states, ev):
-        if int(ev.color_overflow.max()) != 0:
-            raise AssertionError("color overflow on the main path")
+        if int(ev.color_overflow.max()) != 0 or int(ev.toi_overflow.max()) != 0:
+            raise AssertionError("color or TOI overflow on the main path")
 
-    warm = batch(10, 512, dev)
-    roll(warm, 2)                                    # first-use allocations
+    roll(batch(10, 512, dev), 14)                    # first-use allocations
     states = batch(10, 512, dev)
+    rec = Recorder()
     torch.cuda.synchronize()
     sm.solve_middle.launches = 0
+    ktoi.time_of_impact_lanes.launches = 0
     t0 = time.perf_counter()
-    states, syncs = roll(states, 60, check=healthy)
+    states, syncs = roll(states, 60, check=healthy, middle=rec.solve_middle,
+                         toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = sm.solve_middle.launches
+    launches = {"solve_middle": sm.solve_middle.launches,
+                "toi": ktoi.time_of_impact_lanes.launches}
     b = states.bodies
     dyn = b.body_type == 2
-    if launches <= 0:
-        raise AssertionError("the main path never launched the solve-middle kernel")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the main path did not launch every kernel: {launches}")
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("NaN/inf in the body state")
     min_y = float(b.c[..., 1][dyn].min())
     if min_y <= 0.4:
         raise AssertionError(f"a box fell through: min center y {min_y}")
     ws10 = 512 * 60 / elapsed
-    print(f"phase 3 main path 512 x pyramid(10) x 60 steps: {elapsed:.3f} s, "
-          f"{ws10:.1f} worlds*steps/s, kernel launches={launches}, "
+    off = batch(10, 512, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roll(off, 60, continuous=False)
+    torch.cuda.synchronize()
+    el_off = time.perf_counter() - t0
+    print(f"phase 4 main path 512 x pyramid(10) x 60 steps, continuous=True: "
+          f"{elapsed:.3f} s, {ws10:.1f} worlds*steps/s, launches={launches}, "
           f"host syncs/step={syncs / 60:.2f}, min box y={min_y:.4f}, "
           f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}")
-    args_main, _ = capture_middle(states)
+    print(f"phase 4 continuous=False: {el_off:.3f} s, {512 * 60 / el_off:.1f} "
+          f"worlds*steps/s; TOI phase share of the continuous step "
+          f"{(elapsed - el_off) / elapsed:.3f}")
+    # both kernels against their plain versions on the main path's own
+    # inputs: K1's of its last step, K2's of its round with most touching
+    args_main, lanes_main = rec.middle, rec.busiest_toi()
+    del rec
+    err_k1 = max(err_k1, compare_middle(args_main, "512 x pyramid(10), main path, "
+                                                   "last step", phase=4))
+    err_k2 = max(err_k2, compare_toi(lanes_main, "512 x pyramid(10), main path, "
+                                                 "busiest round", min_touching=1, phase=4))
 
-    # ---- 4. kernel path vs plain path, whole step
-    ker, _ = roll(batch(10, 64, dev), 30)
-    pln, _ = roll(batch(10, 64, dev), 30, middle=sm.solve_middle_plain)
+    # ---- 5. kernel path vs plain path, whole step through the impact
+    ker, _ = roll(batch(10, 64, dev), 20)
+    pln, _ = roll(batch(10, 64, dev), 20, middle=sm.solve_middle_plain,
+                  toi=ktoi.time_of_impact_lanes_plain)
     d = {k: (getattr(ker.bodies, k) - getattr(pln.bodies, k)).abs().max().item()
          for k in ("c", "a", "v")}
     awake_eq = bool(torch.equal(ker.bodies.awake, pln.bodies.awake))
-    print(f"phase 4 kernel vs plain path, 64 x pyramid(10) x 30 steps: "
+    toi_eq = bool(torch.equal(ker.contacts.toi_count, pln.contacts.toi_count))
+    print(f"phase 5 kernel vs plain path, 64 x pyramid(10) x 20 steps: "
           f"max|dc|={d['c']:.3g} max|da|={d['a']:.3g} max|dv|={d['v']:.3g} "
-          f"awake_equal={awake_eq}")
-    if d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or not awake_eq:
+          f"awake_equal={awake_eq} toi_count_equal={toi_eq}")
+    if d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or not (awake_eq and toi_eq):
         raise AssertionError(f"kernel path and plain path disagree: {d}")
 
-    # ---- 5. large worlds
+    # ---- 6. large worlds
     big = batch(44, 128, dev)
     roll(batch(44, 8, dev), 1)
+    rec = Recorder()
     torch.cuda.synchronize()
+    sm.solve_middle.launches = 0
+    ktoi.time_of_impact_lanes.launches = 0
     t0 = time.perf_counter()
-    big, syncs44 = roll(big, 20, check=healthy)
+    big, syncs44 = roll(big, 20, check=healthy, middle=rec.solve_middle,
+                        toi=rec.time_of_impact)
     torch.cuda.synchronize()
     el44 = time.perf_counter() - t0
+    launches44 = {"solve_middle": sm.solve_middle.launches,
+                  "toi": ktoi.time_of_impact_lanes.launches}
     if not bool(torch.isfinite(big.bodies.c).all()):
         raise AssertionError("NaN/inf in the pyramid(44) body state")
-    ws44 = 128 * 20 / el44
-    print(f"phase 5 128 x pyramid(44) x 20 steps: {el44:.3f} s, {ws44:.1f} "
-          f"worlds*steps/s, host syncs/step={syncs44 / 20:.2f}")
+    print(f"phase 6 128 x pyramid(44) x 20 steps: {el44:.3f} s, "
+          f"{128 * 20 / el44:.1f} worlds*steps/s, host syncs/step={syncs44 / 20:.2f}, "
+          f"launches={launches44}")
+    if min(launches44.values()) <= 0:
+        raise AssertionError(f"pyramid(44) did not launch every kernel: {launches44}")
+    err_k1 = max(err_k1, compare_middle(rec.middle, "128 x pyramid(44), last step",
+                                        phase=6))
+    err_k2 = max(err_k2, compare_toi(rec.busiest_toi(), "128 x pyramid(44), busiest "
+                                     "round", min_touching=1, phase=6))
+    del rec, big
 
-    # ---- 6. sleep
+    # ---- 7. sleep
     states = batch(10, 64, dev)
     slept_at = None
     for i in range(300):
@@ -237,28 +485,50 @@ def main() -> int:
     before = states.bodies.c.clone()
     states, ev = step_batched(states, DT, **MAIN)
     skipped = ev.host_syncs == 1 and bool(torch.equal(before, states.bodies.c))
-    print(f"phase 6 sleep: every body asleep after {slept_at} steps; "
+    print(f"phase 7 sleep: every body asleep after {slept_at} steps; "
           f"all-asleep skip taken={skipped} (host syncs {ev.host_syncs})")
     if not skipped:
         raise AssertionError("the all-asleep skip was not taken")
 
-    # ---- 7. kernel time per call
+    # ---- 8. time per call and bound, at the main path's shapes
     times = {}
-    for label, args in (("512 x pyramid(10)", args_main),
-                        ("64 x pyramid(10)", args10),
+    for label, args in (("512 x pyramid(10)", args_main), ("64 x pyramid(10)", args10),
                         ("16 x pyramid(44)", args44)):
-        k_ms = time_call(sm.solve_middle, args)
-        p_ms = time_call(sm.solve_middle_plain, args)
-        times[label] = (k_ms, p_ms)
-        print(f"phase 7 solve_middle [{label}]: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms per call")
+        times[label] = (time_call(sm.solve_middle, args),
+                        time_call(sm.solve_middle_plain, args, reps=3))
+        print(f"phase 8 solve_middle [{label}]: kernel {times[label][0]:.4f} ms, "
+              f"plain {times[label][1]:.4f} ms per call")
+    k1_ms, k1_plain = times["512 x pyramid(10)"]
+    solved = int(args_main[2][:, -1].sum())
+    k1_bound = bound(k1_bytes(args_main),
+                     solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
+                               + MAIN["position_iterations"] * K1_OPS_POS))
+    k2_ms = time_call(ktoi.time_of_impact_lanes, lanes_main)
+    k2_plain = time_call(ktoi.time_of_impact_lanes_plain, lanes_main, reps=3)
+    stats = {}
+    state, t = ktoi.time_of_impact_lanes_plain(*lanes_main, stats=stats)
+    trips = {k: int(v.sum()) for k, v in stats.items()}
+    k2_bound = bound(k2_bytes(lanes_main),
+                     sum(K2_OPS[k] * n for k, n in trips.items()))
+    n_lanes = lanes_main[-1].shape[0]
+    print(f"phase 8 toi [512 x pyramid(10), main path's busiest round, {n_lanes} lanes, "
+          f"{int(lanes_main[-1].sum())} active, {int((state == 3).sum())} touching]: "
+          f"kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms per call; loop trips {trips}")
+    print(f"phase 8 bounds: solve_middle {k1_bound[0]:.5f} ms ({k1_bound[1]}: "
+          f"{k1_bytes(args_main)} B, {solved} solved lanes; kernel at "
+          f"{100 * k1_bound[0] / k1_ms:.2f}% of it), toi {k2_bound[0]:.5f} ms "
+          f"({k2_bound[1]}: {k2_bytes(lanes_main)} B; kernel at "
+          f"{100 * k2_bound[0] / k2_ms:.2f}% of it)")
+    print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
-    k_ms, p_ms = times["512 x pyramid(10)"]
+    record = []
+    for name, err, ms, plain, bnd in (("solve_middle", err_k1, k1_ms, k1_plain, k1_bound),
+                                      ("toi", err_k2, k2_ms, k2_plain, k2_bound)):
+        record.append(dict(name=name, **KERNELS[name], launches=launches[name],
+                           max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                           bound_by=bnd[1], library_ms=None))
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{
-        "name": "solve_middle", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

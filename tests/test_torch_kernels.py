@@ -4,18 +4,21 @@ This file imports neither JAX nor the JAX package, so it runs on a GPU
 host without them: `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 Elsewhere every case skips. Inputs are captured from the port's own step
 (8 x pyramid(10) after 30 steps); max_colors=3 makes the coloring
-overflow, which exercises the kernel's Jacobi chunk path."""
+overflow, which exercises the kernel's Jacobi chunk path. The
+time-of-impact kernel gets the lanes of the step in which a pyramid's
+bottom row reaches the ground, and of fast boxes thrown at a thin wall."""
 
 import dataclasses
 
 import pytest
 import torch
 
-from box2d_mt_tpu_torch import settings
+from box2d_mt_tpu_torch import settings, shapes
 from box2d_mt_tpu_torch.models import scenes
 from box2d_mt_tpu_torch.ops import solve_middle as sm
+from box2d_mt_tpu_torch.ops import toi as ktoi
 from box2d_mt_tpu_torch.state import replicate
-from box2d_mt_tpu_torch.world import step_batched
+from box2d_mt_tpu_torch.world import WorldBuilder, step_batched
 
 DT = 1.0 / 60.0
 
@@ -75,3 +78,51 @@ def test_kernel_wrapper_checks_arguments():
     bad[4] = torch.zeros(nw, nb, 3).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         sm.solve_middle(*bad, DT, 1, 1)
+
+
+def _fast_boxes(n):
+    """n worlds of a 0.2 m box thrown at 60-240 m/s at a thin static box."""
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    wall = wb.create_body(position=(2.0, 0.0))
+    wb.create_fixture(wall, shapes.Polygon.box(0.05, 3.0))
+    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 0.0))
+    wb.create_fixture(box, shapes.Polygon.box(0.1, 0.1), density=1.0)
+    states = replicate(wb.freeze(device="cuda"), n)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    speed = 60.0 + 180.0 * torch.rand(n, generator=g)
+    heading = 0.6 * torch.rand(n, generator=g) - 0.3
+    v = states.bodies.v.clone()
+    v[:, box] = torch.stack([speed * torch.cos(heading), speed * torch.sin(heading)], -1).cuda()
+    return dataclasses.replace(states, bodies=dataclasses.replace(states.bodies, v=v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["pyramid", "fast_boxes"])
+def test_toi_kernel_matches_plain(scene):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    states = (replicate(scenes.pyramid(10, device="cuda"), 8) if scene == "pyramid"
+              else _fast_boxes(512))
+    got = []
+
+    def capture(*args):
+        out = ktoi.time_of_impact_lanes(*args)
+        if not got and bool((out[0] == 3).any()):
+            got.append(args)
+        return out
+
+    for _ in range(30):
+        states, _ = step_batched(states, DT, max_colors=16, toi=capture)
+        if got:
+            break
+    assert got, "no lane reported touching"
+    args = got[0]
+    launches = ktoi.time_of_impact_lanes.launches
+    k_state, k_t = ktoi.time_of_impact_lanes(*args)
+    p_state, p_t = ktoi.time_of_impact_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert ktoi.time_of_impact_lanes.launches == launches + 1
+    # same arithmetic in the same order, built with --fmad=false: bit equal
+    assert torch.equal(k_state, p_state)
+    assert torch.equal(k_t, p_t)
+    assert int((k_state == 3).sum()) > 0

@@ -28,9 +28,9 @@ def _leaves(st):
 @pytest.mark.parametrize("scene", ["pyramid", "hello_world"])
 def test_port_scene_equals_jax_scene(scene):
     if scene == "pyramid":
-        jst, tst = jscenes.pyramid(6), tscenes.pyramid(6)
+        jst, tst = jscenes.pyramid(6), tscenes.pyramid(6, device="cpu")
     else:
-        jst, tst = jscenes.hello_world(), tscenes.hello_world()
+        jst, tst = jscenes.hello_world(), tscenes.hello_world(device="cpu")
     jn = jax.tree.map(np.asarray, jst)
     tn = to_numpy(tst)
     for name, got in _leaves(tn):
@@ -44,14 +44,14 @@ def test_port_scene_equals_jax_scene(scene):
 
 def test_state_bridge_round_trip():
     jst = jax.tree.map(np.asarray, jscenes.pyramid(6))
-    st = replicate(state_from_numpy(jst), 3)
+    st = replicate(state_from_numpy(jst, device="cpu"), 3)
     assert st.n_worlds == 3
-    back = state_from_numpy(to_numpy(st))
+    back = state_from_numpy(to_numpy(st), device="cpu")
     for (name, a), (_, b) in zip(_leaves(st), _leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     # copies, not views: mutating the source leaves the bridge unchanged
     host = to_numpy(st)
-    bridged = state_from_numpy(host)
+    bridged = state_from_numpy(host, device="cpu")
     host.bodies.c[...] = 123.0
     assert not torch.any(bridged.bodies.c == 123.0)
     assert torch.equal(map_leaves(lambda t: t, st).bodies.c, st.bodies.c)

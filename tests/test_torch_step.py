@@ -32,7 +32,7 @@ STEPS = 90
 def trajectories():
     jst = replicate_state(jscenes.pyramid(6), 2)
     kinds = jworld.possible_kinds(jscenes.pyramid(6))
-    tst = state_from_numpy(jax.tree.map(np.asarray, jst))
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     jax_steps, port_steps, port_events = [], [], []
     for _ in range(STEPS):
         jst, jev = jworld.step_batched(jst, jnp.float32(DT), kinds=kinds,
@@ -78,7 +78,7 @@ def test_sleep_matches_jax(trajectories):
 
 
 def test_helloworld_freefall_exact():
-    st = tscenes.hello_world()
+    st = tscenes.hello_world(device="cpu")
     ref = [json.loads(line) for line in open(GOLDEN / "helloworld_60.jsonl")]
     roll = make_rollout(1, velocity_iterations=6, position_iterations=2,
                         continuous=False)
@@ -89,14 +89,18 @@ def test_helloworld_freefall_exact():
         assert abs(p[1] - rb[1]) < 1e-6, f"step {i}"
 
 
-def test_continuous_and_unported_features_raise():
-    st = tscenes.pyramid(2)
-    with pytest.raises(NotImplementedError, match="TOI"):
-        tworld.step_batched(st, DT)
-    with pytest.raises(NotImplementedError, match="TOI"):
-        tworld.step(st, DT)
+def test_continuous_runs_and_unported_features_raise():
+    if not torch.cuda.is_available():
+        # the card is the default device: without one, torch refuses
+        with pytest.raises((AssertionError, RuntimeError)):
+            tscenes.pyramid(2)
+    st = tscenes.pyramid(2, device="cpu")
+    sts, ev = tworld.step_batched(st, DT)            # continuous=True by default
+    assert ev.host_syncs >= 2 and int(ev.toi_overflow.sum()) == 0
+    st, ev = tworld.step(st, DT)
+    assert torch.equal(st.bodies.c, sts.bodies.c)
     st, ev = tworld.step(st, DT, continuous=False)
-    assert ev.host_syncs >= 1
+    assert ev.host_syncs >= 1 and not bool(ev.toi_begin.any())
     with pytest.raises(NotImplementedError, match="joints"):
         tworld.WorldBuilder().create_revolute_joint(0, 1, (0.0, 0.0))
     with pytest.raises(NotImplementedError, match="hooks"):
