@@ -2,9 +2,11 @@
 
 A batched 2D rigid-body engine on tensors with a leading world axis. It
 runs the step of polygon/edge worlds such as `models.scenes.pyramid`,
-continuous collision included; its solve middle and its time of impact
-are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu), each with
-a plain PyTorch version for CPU tensors. States are built on the card
+continuous collision included, and of worlds with revolute, distance,
+prismatic and weld joints such as `models.scenes.tumbler`; its solve
+middle (one kernel, or four around the joint passes) and its time of
+impact are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu),
+each with a plain PyTorch version for CPU tensors. States are built on the card
 unless the caller passes another `device`. Quick start::
 
     from box2d_mt_tpu_torch import step_batched

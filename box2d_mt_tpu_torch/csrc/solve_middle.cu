@@ -1,6 +1,9 @@
-// Contact solve middle for a batch of worlds, one thread block per world.
+// Contact solve middle for a batch of worlds, one thread block per world:
+// the whole middle as one kernel (K1, joint-free worlds) and, further down,
+// the same work as four kernels around the joint passes (K3-K6, "the
+// sandwich"). This header is K1's.
 //
-// Replaces the TPU kernel box2d_mt_tpu/ops/pallas_solve.py `_kernel` /
+// K1 replaces the TPU kernel box2d_mt_tpu/ops/pallas_solve.py `_kernel` /
 // `solve_middle_pallas` (:273-349): pack the slot-order constraint rows into
 // color-major order, run the velocity Gauss-Seidel sweeps color by color
 // (friction + 2-point block LCP, b2ContactSolver.cpp:293-603), integrate
@@ -411,6 +414,103 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
   }
 }
 
+// ---------------------------------------------------------------------------
+// The sandwich for worlds with joints: the same pack, sweeps and unpack as
+// four kernels, one contact iteration per launch, so that the joint passes
+// (PyTorch) run between them in the reference island order. They replace
+// the TPU kernels pack_packed, vel_iter_packed, pos_iter_packed and
+// unpack_packed (box2d_mt_tpu/ops/pallas_solve.py:363, :396, :429, :462).
+// The packed table P (W, 52, C: the 51 rows and min_sep) lives in global
+// memory between launches; a velocity sweep updates its impulse rows 47-50
+// in place, a position sweep its min_sep row. Body planes go through
+// shared memory inside a launch and through global memory between
+// launches. Bounds: bytes, for each of the four (the solved lanes' rows of
+// P, perm, dyn_ab and the body planes); chip_smoke.py computes them.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+pack_packed_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
+                   const int* __restrict__ color_start, float* __restrict__ packed,
+                   int C, int mc) {
+  const int w = blockIdx.x;
+  const float* B = blob + (size_t)w * kRows * C;
+  const int* pw = perm + (size_t)w * C;
+  float* P = packed + (size_t)w * kScratchRows * C;
+  const int total = color_start[(size_t)w * (mc + 1) + mc];
+  for (int p = threadIdx.x; p < total; p += blockDim.x) {
+    const int slot = pw[p];
+    for (int k = 0; k < kRows; ++k) P[(size_t)k * C + p] = B[(size_t)k * C + slot];
+    P[(size_t)kMinSepRow * C + p] = 0.0f;
+  }
+}
+
+// One sweep over a (W, 3, n) body plane: velocity rows [vx | vy | w] or
+// position rows [cx | cy | a].
+template <bool kVelocity>
+__global__ void __launch_bounds__(kThreads)
+iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
+                   const int* __restrict__ color_start,
+                   const uint8_t* __restrict__ dyn_ab,
+                   const float* __restrict__ body_in, float* __restrict__ body_out,
+                   int n, int C, int mc) {
+  extern __shared__ float smem[];
+  float* sb = smem;                          // the three body rows
+  float* sd = smem + 3 * n;                  // overflow chunk deltas
+  int* sidx = reinterpret_cast<int*>(sd + 6 * kChunk);
+
+  const int w = blockIdx.x;
+  const size_t bo = (size_t)w * 3 * n;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) sb[i] = body_in[bo + i];
+  __syncthreads();
+  sweep<kVelocity>(packed + (size_t)w * kScratchRows * C, C,
+                   color_start + (size_t)w * (mc + 1), mc, perm + (size_t)w * C,
+                   dyn_ab + (size_t)w * C, sb, n, sd, sidx);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) body_out[bo + i] = sb[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack_packed_kernel(const float* __restrict__ packed, const int* __restrict__ perm,
+                     const int* __restrict__ color_start, float* __restrict__ aux,
+                     int C, int mc) {
+  const int w = blockIdx.x;
+  const float* P = packed + (size_t)w * kScratchRows * C;
+  const int* pw = perm + (size_t)w * C;
+  float* A = aux + (size_t)w * kAuxRows * C;
+  const int total = color_start[(size_t)w * (mc + 1) + mc];
+  for (int i = threadIdx.x; i < kAuxRows * C; i += blockDim.x) A[i] = 0.0f;
+  __syncthreads();
+  for (int p = threadIdx.x; p < total; p += blockDim.x) {
+    const int slot = pw[p];
+    for (int r = 0; r < 4; ++r) A[(size_t)r * C + slot] = P[(size_t)(47 + r) * C + p];
+    A[(size_t)4 * C + slot] = P[(size_t)kMinSepRow * C + p];
+  }
+}
+
+// Dynamic shared memory above 48 KB is an opt-in per kernel function.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <bool kVelocity>
+int iter_packed_launch(float* packed, const int* perm, const int* color_start,
+                       const uint8_t* dyn_ab, const float* body_in, float* body_out,
+                       int n_worlds, int n_bodies, int n_contacts, int max_colors,
+                       void* stream) {
+  if (n_worlds <= 0) return 0;
+  const size_t smem = (size_t)(3 * n_bodies + 6 * kChunk) * sizeof(float) +
+                      2 * kChunk * sizeof(int);
+  const cudaError_t e = allow_smem(iter_packed_kernel<kVelocity>, smem);
+  if (e != cudaSuccess) return (int)e;
+  iter_packed_kernel<kVelocity><<<n_worlds, kThreads, smem, (cudaStream_t)stream>>>(
+      packed, perm, color_start, dyn_ab, body_in, body_out, n_bodies, n_contacts,
+      max_colors);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int solve_middle_launch(const float* blob, const int* perm,
@@ -425,14 +525,48 @@ extern "C" int solve_middle_launch(const float* blob, const int* perm,
   if (n_worlds <= 0) return 0;
   const size_t smem = (size_t)(6 * n_bodies + 6 * kChunk) * sizeof(float) +
                       2 * kChunk * sizeof(int) + (size_t)n_bodies;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        solve_middle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(solve_middle_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   solve_middle_kernel<<<n_worlds, kThreads, smem, (cudaStream_t)stream>>>(
       blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out, aux,
       scratch, n_bodies, n_contacts, max_colors, velocity_iterations,
       position_iterations, dt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pack_packed_launch(const float* blob, const int* perm,
+                                  const int* color_start, float* packed,
+                                  int n_worlds, int n_contacts, int max_colors,
+                                  void* stream) {
+  if (n_worlds <= 0) return 0;
+  pack_packed_kernel<<<n_worlds, kThreads, 0, (cudaStream_t)stream>>>(
+      blob, perm, color_start, packed, n_contacts, max_colors);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vel_iter_packed_launch(float* packed, const int* perm,
+                                      const int* color_start, const uint8_t* dyn_ab,
+                                      const float* vel, float* vel_out, int n_worlds,
+                                      int n_bodies, int n_contacts, int max_colors,
+                                      void* stream) {
+  return iter_packed_launch<true>(packed, perm, color_start, dyn_ab, vel, vel_out,
+                                  n_worlds, n_bodies, n_contacts, max_colors, stream);
+}
+
+extern "C" int pos_iter_packed_launch(float* packed, const int* perm,
+                                      const int* color_start, const uint8_t* dyn_ab,
+                                      const float* pos, float* pos_out, int n_worlds,
+                                      int n_bodies, int n_contacts, int max_colors,
+                                      void* stream) {
+  return iter_packed_launch<false>(packed, perm, color_start, dyn_ab, pos, pos_out,
+                                   n_worlds, n_bodies, n_contacts, max_colors, stream);
+}
+
+extern "C" int unpack_packed_launch(const float* packed, const int* perm,
+                                    const int* color_start, float* aux, int n_worlds,
+                                    int n_contacts, int max_colors, void* stream) {
+  if (n_worlds <= 0) return 0;
+  unpack_packed_kernel<<<n_worlds, kThreads, 0, (cudaStream_t)stream>>>(
+      packed, perm, color_start, aux, n_contacts, max_colors);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,16 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
 
 
+def cross_vv(a, b):
+    """b2Cross(a, b) (b2Math.h:402): scalar cross of two 2-vectors."""
+    return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+
+
+def cross_sv(s, v):
+    """b2Cross(s, v) (b2Math.h:414-417)."""
+    return torch.stack([-s * v[..., 1], s * v[..., 0]], dim=-1)
+
+
 def normalize(v, eps=1.1754943508222875e-38):
     """b2Vec2::Normalize (b2Math.h:98-110): (unit, length); vectors shorter
     than `eps` normalize to zero."""
@@ -63,3 +73,17 @@ def take(x, idx):
     entries in [0, M) -> (W, K, ...)."""
     w = torch.arange(x.shape[0], device=x.device)[:, None]
     return x[w, idx]
+
+
+def add_rows(target, idx, delta):
+    """target (W, N, K) + the sum of delta (W, M, K) rows at idx (W, M).
+    The deltas are summed first (into zeros, in lane order: index_put_
+    with accumulate is sequential on a CPU and sort-based, so ordered and
+    deterministic, on a card) and then added, as the JAX package's
+    scatter-add does; a row hit by one lane gets exactly its delta."""
+    nw, n = target.shape[:2]
+    rows = (idx.long() + n * torch.arange(nw, device=idx.device)[:, None]).reshape(-1)
+    acc = torch.zeros((nw * n,) + target.shape[2:], dtype=target.dtype,
+                      device=target.device)
+    acc.index_put_((rows,), delta.reshape((-1,) + target.shape[2:]), accumulate=True)
+    return target + acc.reshape(target.shape)

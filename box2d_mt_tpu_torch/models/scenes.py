@@ -4,6 +4,9 @@ Same construction as `box2d_mt_tpu.models.scenes`, so the frozen states of
 the two packages are equal field by field. States land on the card unless
 the caller passes another `device` (the tests pass device="cpu")."""
 
+import math
+import random
+
 from .. import settings, shapes
 from ..world import WorldBuilder
 
@@ -35,4 +38,119 @@ def pyramid(rows=10, device="cuda"):
             wb.create_fixture(b, box, density=5.0)
             y = (y[0] + dy[0], y[1] + dy[1])
         x = (x[0] + dx[0], x[1] + dx[1])
+    return wb.freeze(device=device)
+
+
+def revolute_pendulum(device="cuda"):
+    """Golden scene: box swinging on a revolute joint (golden.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    body = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(3.0, 10.0))
+    wb.create_fixture(body, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    wb.create_revolute_joint(ground, body, (0.0, 10.0))
+    return wb.freeze(device=device)
+
+
+def prismatic_slide(device="cuda"):
+    """Golden scene: motorized prismatic slider with limits (golden.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    body = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                          position=(0.0, 10.0), angle=0.5)
+    wb.create_fixture(body, shapes.Polygon.box(2.0, 0.5), density=5.0)
+    n = math.sqrt(5.0)
+    wb.create_prismatic_joint(
+        ground, body, (0.0, 10.0), (2.0 / n, 1.0 / n),
+        enable_motor=True, motor_speed=1.0, max_motor_force=100.0,
+        enable_limit=True, lower_translation=-5.0, upper_translation=5.0)
+    return wb.freeze(device=device)
+
+
+def tumbler(n_boxes=200, device="cuda"):
+    """Testbed/Tests/Tumbler.h: a rotating container full of boxes, driven
+    by a revolute motor on a dynamic container."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    container = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                               position=(0.0, 10.0), allow_sleep=False)
+    box = shapes.Polygon.box
+    wb.create_fixture(container, box(0.5, 10.0, (10.0, 0.0), 0.0), density=5.0)
+    wb.create_fixture(container, box(0.5, 10.0, (-10.0, 0.0), 0.0), density=5.0)
+    wb.create_fixture(container, box(10.0, 0.5, (0.0, 10.0), 0.0), density=5.0)
+    wb.create_fixture(container, box(10.0, 0.5, (0.0, -10.0), 0.0), density=5.0)
+    wb.create_revolute_joint(ground, container, (0.0, 10.0),
+                             enable_motor=True, motor_speed=0.05 * 3.14159265,
+                             max_motor_torque=1e8)
+    rng = random.Random(42)
+    for _ in range(n_boxes):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(rng.uniform(-5, 5), 10.0 + rng.uniform(-5, 5)))
+        wb.create_fixture(b, box(0.125, 0.125), density=1.0)
+    return wb.freeze(device=device)
+
+
+def weld_pendulum(soft=False, device="cuda"):
+    """Golden scene: two boxes welded, swinging on a revolute (golden2.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    b1 = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(2.0, 8.0))
+    wb.create_fixture(b1, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    b2 = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(3.0, 8.0))
+    wb.create_fixture(b2, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    wb.create_revolute_joint(ground, b1, (2.0, 9.0))
+    if soft:
+        wb.create_weld_joint(b1, b2, (2.5, 8.0), frequency=4.0,
+                             damping_ratio=0.5)
+    else:
+        wb.create_weld_joint(b1, b2, (2.5, 8.0))
+    return wb.freeze(device=device)
+
+
+def cantilever(n=8, device="cuda"):
+    """Testbed/Tests/Cantilever.h: weld-joint beams: a rigid chain, a soft
+    (5 Hz, 0.7 damping) chain, and a second rigid chain."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    plank = shapes.Polygon.box(0.5, 0.125)
+    prev = ground
+    for i in range(n):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(-14.5 + 1.0 * i, 5.0))
+        wb.create_fixture(b, plank, density=20.0)
+        wb.create_weld_joint(prev, b, (-15.0 + 1.0 * i, 5.0))
+        prev = b
+    wide = shapes.Polygon.box(1.0, 0.125)
+    prev = ground
+    for i in range(3):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(-14.0 + 2.0 * i, 15.0))
+        wb.create_fixture(b, wide, density=20.0)
+        wb.create_weld_joint(prev, b, (-15.0 + 2.0 * i, 15.0),
+                             frequency=5.0, damping_ratio=0.7)
+        prev = b
+    prev = ground
+    for i in range(n):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(-4.5 + 1.0 * i, 5.0))
+        wb.create_fixture(b, plank, density=20.0)
+        wb.create_weld_joint(prev, b, (-5.0 + 1.0 * i, 5.0))
+        prev = b
+    return wb.freeze(device=device)
+
+
+def chain_links(n=30, device="cuda"):
+    """Testbed/Tests/Chain.h: n planks revolute-chained off the ground at
+    y=25, swinging down under gravity."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    plank = shapes.Polygon.box(0.6, 0.125)
+    y, prev = 25.0, ground
+    for i in range(n):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(0.5 + i, y))
+        wb.create_fixture(b, plank, density=20.0, friction=0.2)
+        wb.create_revolute_joint(prev, b, (float(i), y))
+        prev = b
     return wb.freeze(device=device)

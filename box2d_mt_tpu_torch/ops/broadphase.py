@@ -73,8 +73,26 @@ def should_collide_filters(group_i, group_j, cat_i, cat_j, mask_i, mask_j):
     return torch.where(same_group, group_ok, mask_ok)
 
 
-def _pair_mask(fx, bodies):
-    """(W, F, F) admissible overlapping pairs in the upper triangle."""
+def _forbidden_joint_keys(joints, nf: int):
+    """(W, J) sorted packed body-pair keys of the active joints with
+    collide_connected == False (b2Body::ShouldCollide walks the joint
+    list); -2 fills the other slots. The key is lo * nf + hi in int32, as
+    in the JAX package."""
+    from ..joints import blocks
+    keys = []
+    for _, block in blocks(joints):
+        lo = torch.minimum(block.body_a, block.body_b)
+        hi = torch.maximum(block.body_a, block.body_b)
+        keys.append(torch.where(block.active & ~block.collide_connected,
+                                lo * nf + hi, -2))
+    if not keys:
+        return None
+    return torch.sort(torch.cat(keys, 1), dim=1).values
+
+
+def _pair_mask(fx, bodies, jkeys):
+    """(W, F, F) admissible overlapping pairs in the upper triangle;
+    `jkeys` are the worlds' forbidden joint keys (or None)."""
     nf = fx.capacity
     lo, hi = fx.aabb_lo, fx.aabb_hi
     overlap = torch.all((lo[:, :, None, :] <= hi[:, None, :, :])
@@ -90,6 +108,13 @@ def _pair_mask(fx, bodies):
     ok &= dyn[:, :, None] | dyn[:, None, :]
     enb = take(bodies.enabled, bc)
     ok &= enb[:, :, None] & enb[:, None, :]
+    if jkeys is not None:
+        # jointed bodies with collide_connected=False do not collide
+        bkey = (torch.minimum(body[:, :, None], body[:, None, :]) * nf
+                + torch.maximum(body[:, :, None], body[:, None, :]))
+        flat = bkey.reshape(bkey.shape[0], -1)
+        idx = torch.searchsorted(jkeys, flat).clamp_max(jkeys.shape[1] - 1)
+        ok &= (torch.gather(jkeys, 1, idx) != flat).reshape(bkey.shape)
     ok &= should_collide_filters(
         fx.filter_group[:, :, None], fx.filter_group[:, None, :],
         fx.filter_category[:, :, None], fx.filter_category[:, None, :],
@@ -140,6 +165,7 @@ def find_pairs_allpairs(state, capacity: int):
     fx, bd = state.fixtures, state.bodies
     nw, nf = fx.body.shape
     step = max(1, _MASK_ELEMENTS // (nf * nf))
+    jkeys = _forbidden_joint_keys(state.joints, nf)
     parts = []
     for w0 in range(0, nw, step):
         sl = slice(w0, w0 + step)
@@ -147,7 +173,8 @@ def find_pairs_allpairs(state, capacity: int):
                            for k in fx.__dataclass_fields__})
         bd_c = type(bd)(**{k: getattr(bd, k)[sl]
                            for k in bd.__dataclass_fields__})
-        parts.append(_extract(_pair_mask(fx_c, bd_c), capacity))
+        parts.append(_extract(
+            _pair_mask(fx_c, bd_c, None if jkeys is None else jkeys[sl]), capacity))
     i_sel, j_sel, valid, overflow = (torch.cat(x) for x in zip(*parts))
     # role ordering by shape type (narrowphase registration order)
     swap = needs_swap(take(fx.shape_type, i_sel.long()),

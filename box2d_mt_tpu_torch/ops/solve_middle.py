@@ -30,6 +30,25 @@ Returns (vel_out (W, 3, N), pos_out (W, 3, N), aux (W, 5, C)) with aux
 rows ni0, ni1, ti0, ti1, min_sep in slot order (0 for unused slots);
 min_sep is min(0, separation) of the last position sweep.
 
+Worlds with joints run the same work as four functions around the joint
+passes, "the sandwich" (counterparts of `pack_packed`, `vel_iter_packed`,
+`pos_iter_packed`, `unpack_packed`, pallas_solve.py:363-483), each a CUDA
+kernel of `csrc/solve_middle.cu` for CUDA tensors and a plain version for
+CPU tensors:
+
+  pack_packed(blob, perm, color_start) -> packed (W, 52, C)
+      rows 0-50 are the blob rows in packed order, row 51 is min_sep (0);
+      positions past color_start[:, MC] are unspecified
+  vel_iter_packed(packed, perm, color_start, dyn_ab, vel) -> vel'
+      ONE velocity sweep; updates the impulse rows 47-50 of `packed` IN
+      PLACE, so they persist from one call to the next
+  pos_iter_packed(packed, perm, color_start, dyn_ab, pos) -> pos'
+      ONE position sweep; writes the min_sep row of `packed` in place
+  unpack_packed(packed, perm, color_start) -> aux (W, 5, C)
+
+`solve_middle_plain` is the composition of the four plain versions with
+`integrate_positions` between the velocity and the position sweeps.
+
 Semantics: within a color the lanes are conflict-free on dynamic bodies,
 so a color is one parallel pass and only dynamic endpoints are written.
 Color MC-1 is the overflow color of the coloring: its lanes may share
@@ -39,6 +58,7 @@ chunk, the Pallas kernel's chunking).
 """
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -49,48 +69,85 @@ from .solver import position_contact_math_s, velocity_contact_math_s
 
 CK = 256
 BLOB_ROWS = 51
+PACKED_ROWS = 52          # the blob rows and min_sep
+MIN_SEP_ROW = 51
 AUX_ROWS = 5
 
 
-def _check(blob, perm, color_start, dyn_ab, vel, pos, movable):
-    nw, _, nc = blob.shape
-    nb = vel.shape[-1]
-    want = {"blob": (blob, torch.float32, (nw, BLOB_ROWS, nc)),
-            "perm": (perm, torch.int32, (nw, nc)),
-            "color_start": (color_start, torch.int32, (nw, color_start.shape[-1])),
-            "dyn_ab": (dyn_ab, torch.uint8, (nw, nc)),
-            "vel": (vel, torch.float32, (nw, 3, nb)),
-            "pos": (pos, torch.float32, (nw, 3, nb)),
-            "movable": (movable, torch.bool, (nw, nb))}
+def _check(fn, want):
+    """`want` maps an argument name to (tensor, dtype, shape); all must be
+    contiguous and on the first one's device."""
+    first = next(iter(want.values()))[0]
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"solve_middle: {name} must be {dtype} of shape "
+            raise ValueError(f"{fn}: {name} must be {dtype} of shape "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != blob.device:
-            raise ValueError(f"solve_middle: {name} is on {t.device}, "
-                             f"blob on {blob.device}")
+        if t.device != first.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, "
+                             f"{next(iter(want))} on {first.device}")
         if not t.is_contiguous():
-            raise ValueError(f"solve_middle: {name} must be contiguous")
-    if color_start.shape[-1] < 2:
-        raise ValueError("solve_middle: color_start needs max_colors + 1 >= 2 columns")
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if "color_start" in want and want["color_start"][0].shape[-1] < 2:
+        raise ValueError(f"{fn}: color_start needs max_colors + 1 >= 2 columns")
+
+
+def _layout_specs(perm, color_start, dyn_ab=None):
+    nw, nc = perm.shape
+    want = {"perm": (perm, torch.int32, (nw, nc)),
+            "color_start": (color_start, torch.int32, (nw, color_start.shape[-1]))}
+    if dyn_ab is not None:
+        want["dyn_ab"] = (dyn_ab, torch.uint8, (nw, nc))
+    return want
+
+
+def _dispatch(fn, first, plain, launch, *args):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if first.device.type == "cpu":
+        return plain(*args)
+    if first.device.type != "cuda":
+        raise ValueError(f"{fn}: no implementation for {first.device}")
+    return launch(*args)
 
 
 def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
                  velocity_iterations: int, position_iterations: int):
     """Run the solve middle: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (see the module docstring)."""
-    _check(blob, perm, color_start, dyn_ab, vel, pos, movable)
-    if blob.device.type == "cpu":
-        return solve_middle_plain(blob, perm, color_start, dyn_ab, vel, pos,
-                                  movable, dt, velocity_iterations,
-                                  position_iterations)
-    if blob.device.type != "cuda":
-        raise ValueError(f"solve_middle: no implementation for {blob.device}")
-    return _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
-                   velocity_iterations, position_iterations)
+    nw, _, nc = blob.shape
+    nb = vel.shape[-1]
+    _check("solve_middle", {
+        "blob": (blob, torch.float32, (nw, BLOB_ROWS, nc)),
+        **_layout_specs(perm, color_start, dyn_ab),
+        "vel": (vel, torch.float32, (nw, 3, nb)),
+        "pos": (pos, torch.float32, (nw, 3, nb)),
+        "movable": (movable, torch.bool, (nw, nb))})
+    return _dispatch("solve_middle", blob, solve_middle_plain, _launch,
+                     blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
+                     velocity_iterations, position_iterations)
 
 
 solve_middle.launches = 0
+
+
+def _entry(name, n_pointers, n_ints, with_dt=False):
+    fn = getattr(load("solve_middle"), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                       + ([ctypes.c_float] if with_dt else []) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(name, first, pointers, ints, dt=None):
+    """Launch one kernel of csrc/solve_middle.cu on PyTorch's current
+    stream; raises when the launch is refused."""
+    fn = _entry(name, len(pointers), len(ints), dt is not None)
+    stream = torch.cuda.current_stream(first.device).cuda_stream
+    with torch.cuda.device(first.device):
+        err = fn(*(t.data_ptr() for t in pointers), *ints,
+                 *(() if dt is None else (float(dt),)), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
 def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
@@ -100,54 +157,159 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
     vel_out = torch.empty_like(vel)
     pos_out = torch.empty_like(pos)
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=blob.device)
-    scratch = torch.empty((nw, BLOB_ROWS + 1, nc), dtype=torch.float32,
+    scratch = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
                           device=blob.device)
-    fn = _entry()
-    stream = torch.cuda.current_stream(blob.device).cuda_stream
-    with torch.cuda.device(blob.device):
-        err = fn(blob.data_ptr(), perm.data_ptr(), color_start.data_ptr(),
-                 dyn_ab.data_ptr(), vel.data_ptr(), pos.data_ptr(),
-                 movable.data_ptr(), vel_out.data_ptr(), pos_out.data_ptr(),
-                 aux.data_ptr(), scratch.data_ptr(), nw, nb, nc,
-                 color_start.shape[-1] - 1, velocity_iterations,
-                 position_iterations, float(dt), stream)
-    if err != 0:
-        raise RuntimeError(f"solve_middle kernel launch failed: CUDA error {err}")
+    _call("solve_middle_launch", blob,
+          (blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out,
+           aux, scratch),
+          (nw, nb, nc, color_start.shape[-1] - 1, velocity_iterations,
+           position_iterations), dt)
     solve_middle.launches += 1
     return vel_out, pos_out, aux
 
 
-def _entry():
-    fn = load("solve_middle").solve_middle_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+# --------------------------------------------------------------------------
+# the sandwich: one launch per contact iteration (worlds with joints)
+# --------------------------------------------------------------------------
 
 
-def _packed_layout(perm, color_start, dyn_ab, n_colors):
-    """Per packed position: slot, color, chunk (within the overflow
-    color), dyn flags and whether the position is used."""
+def pack_packed(blob, perm, color_start):
+    """Slot-order constraint rows -> the color-major packed table."""
+    nw, _, nc = blob.shape
+    _check("pack_packed", {"blob": (blob, torch.float32, (nw, BLOB_ROWS, nc)),
+                           **_layout_specs(perm, color_start)})
+    return _dispatch("pack_packed", blob, pack_packed_plain, _launch_pack,
+                     blob, perm, color_start)
+
+
+pack_packed.launches = 0
+
+
+def _launch_pack(blob, perm, color_start):
+    nw, _, nc = blob.shape
+    packed = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
+                         device=blob.device)
+    _call("pack_packed_launch", blob, (blob, perm, color_start, packed),
+          (nw, nc, color_start.shape[-1] - 1))
+    pack_packed.launches += 1
+    return packed
+
+
+def _check_iter(fn, packed, perm, color_start, dyn_ab, body, body_name):
+    nw, _, nc = packed.shape
+    _check(fn, {"packed": (packed, torch.float32, (nw, PACKED_ROWS, nc)),
+                **_layout_specs(perm, color_start, dyn_ab),
+                body_name: (body, torch.float32, (nw, 3, body.shape[-1]))})
+
+
+def _launch_iter(name, packed, perm, color_start, dyn_ab, body):
+    nw, _, nc = packed.shape
+    out = torch.empty_like(body)
+    _call(name, packed, (packed, perm, color_start, dyn_ab, body, out),
+          (nw, body.shape[-1], nc, color_start.shape[-1] - 1))
+    return out
+
+
+def vel_iter_packed(packed, perm, color_start, dyn_ab, vel):
+    """One contact velocity sweep over all colors; `packed`'s impulse rows
+    are updated in place."""
+    _check_iter("vel_iter_packed", packed, perm, color_start, dyn_ab, vel, "vel")
+    return _dispatch("vel_iter_packed", packed, vel_iter_packed_plain,
+                     _launch_vel_iter, packed, perm, color_start, dyn_ab, vel)
+
+
+vel_iter_packed.launches = 0
+
+
+def _launch_vel_iter(*args):
+    out = _launch_iter("vel_iter_packed_launch", *args)
+    vel_iter_packed.launches += 1
+    return out
+
+
+def pos_iter_packed(packed, perm, color_start, dyn_ab, pos):
+    """One contact position sweep over all colors; `packed`'s min_sep row
+    is written in place."""
+    _check_iter("pos_iter_packed", packed, perm, color_start, dyn_ab, pos, "pos")
+    return _dispatch("pos_iter_packed", packed, pos_iter_packed_plain,
+                     _launch_pos_iter, packed, perm, color_start, dyn_ab, pos)
+
+
+pos_iter_packed.launches = 0
+
+
+def _launch_pos_iter(*args):
+    out = _launch_iter("pos_iter_packed_launch", *args)
+    pos_iter_packed.launches += 1
+    return out
+
+
+def unpack_packed(packed, perm, color_start):
+    """Impulses and min_sep back to slot order, 0 where unsolved."""
+    nw, _, nc = packed.shape
+    _check("unpack_packed", {"packed": (packed, torch.float32, (nw, PACKED_ROWS, nc)),
+                             **_layout_specs(perm, color_start)})
+    return _dispatch("unpack_packed", packed, unpack_packed_plain,
+                     _launch_unpack, packed, perm, color_start)
+
+
+unpack_packed.launches = 0
+
+
+def _launch_unpack(packed, perm, color_start):
+    nw, _, nc = packed.shape
+    aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=packed.device)
+    _call("unpack_packed_launch", packed, (packed, perm, color_start, aux),
+          (nw, nc, color_start.shape[-1] - 1))
+    unpack_packed.launches += 1
+    return aux
+
+
+class Sandwich(NamedTuple):
+    """The four functions `step_batched` runs around the joint passes."""
+    pack: Callable
+    vel_iter: Callable
+    pos_iter: Callable
+    unpack: Callable
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+class _Layout(NamedTuple):
+    """Per packed position: slot, whether it is used, color, chunk (within
+    the overflow color) and the dynamic-endpoint flags; and the (color,
+    chunk) passes of one sweep in order."""
+    slot: torch.Tensor
+    used: torch.Tensor
+    color: torch.Tensor
+    chunk: torch.Tensor
+    dyn_a: torch.Tensor
+    dyn_b: torch.Tensor
+    passes: list
+
+
+def _packed_layout(perm, color_start, dyn_ab=None) -> _Layout:
+    """Reads the color sizes to the host once (for the passes)."""
     nw, nc = perm.shape
+    mc = color_start.shape[-1] - 1
     p = torch.arange(nc, device=perm.device)
     used = p < color_start[:, -1:]
     slot = torch.where(used, perm, 0).long()
     color = (p[None, None, :] >= color_start[:, 1:, None]).sum(1)    # (W, C)
-    start = torch.gather(color_start, 1, color.clamp_max(n_colors - 1))
-    chunk = torch.where(color == n_colors - 1, (p - start) // CK, 0)
-    flags = torch.gather(dyn_ab, 1, slot)
-    return slot, used, color, chunk, (flags & 1) > 0, (flags & 2) > 0
-
-
-def _passes(color_start):
-    """The (color, chunk) passes of one sweep in order. Reads the color
-    sizes to the host once."""
-    mc = color_start.shape[-1] - 1
+    start = torch.gather(color_start, 1, color.clamp_max(mc - 1))
+    chunk = torch.where(color == mc - 1, (p - start) // CK, 0)
+    if dyn_ab is None:
+        dyn_a = dyn_b = None
+    else:
+        flags = torch.gather(dyn_ab, 1, slot)
+        dyn_a, dyn_b = (flags & 1) > 0, (flags & 2) > 0
     sizes = (color_start[:, 1:] - color_start[:, :-1]).amax(0).tolist()
-    out = [(c, 0) for c in range(mc - 1) if sizes[c] > 0]
-    out += [(mc - 1, k) for k in range(-(-sizes[mc - 1] // CK))]
-    return out
+    passes = [(c, 0) for c in range(mc - 1) if sizes[c] > 0]
+    passes += [(mc - 1, k) for k in range(-(-sizes[mc - 1] // CK))]
+    return _Layout(slot, used, color, chunk, dyn_a, dyn_b, passes)
 
 
 def _apply(state, idx_a, idx_b, da, db):
@@ -158,79 +320,112 @@ def _apply(state, idx_a, idx_b, da, db):
     state.scatter_add_(2, idx, torch.stack([da, db], -1).reshape(nw, 3, 2 * nl))
 
 
+def _gather3(state, idx):
+    g = torch.gather(state, 2, idx[:, None, :].expand(-1, 3, -1))
+    return g[:, 0], g[:, 1], g[:, 2]
+
+
+def _pack(blob, lay: _Layout):
+    nw, _, nc = blob.shape
+    packed = blob.new_zeros(nw, PACKED_ROWS, nc)
+    rows = torch.gather(blob, 2, lay.slot[:, None, :].expand(-1, BLOB_ROWS, -1))
+    packed[:, :BLOB_ROWS] = torch.where(lay.used[:, None, :], rows, 0.0)
+    return packed
+
+
+def _sweep(packed, lay: _Layout, body, lane_fn):
+    """One sweep of `lane_fn` over every pass; `body` is (W, 3, N)."""
+    nw, _, nb = body.shape
+    r = lambda k: packed[:, k]                                # (W, C) row
+    act = lay.used & (r(0) > 0.5)
+    ia = torch.where(lay.used, r(1), 0.0).long()
+    ib = torch.where(lay.used, r(2), 0.0).long()
+    dump = torch.full_like(ia, nb)
+    state = torch.cat([body, body.new_zeros(nw, 3, 1)], 2)
+    for c, k in lay.passes:
+        m = act & (lay.color == c) & (lay.chunk == k)
+        a0 = _gather3(state, ia)
+        b0 = _gather3(state, ib)
+        a1, b1 = lane_fn(r, m, a0, b0)
+        _apply(state, torch.where(m & lay.dyn_a, ia, dump),
+               torch.where(m & lay.dyn_b, ib, dump),
+               torch.stack([x - y for x, y in zip(a1, a0)], 1),
+               torch.stack([x - y for x, y in zip(b1, b0)], 1))
+    return state[..., :nb].contiguous()
+
+
+def _vel_sweep(packed, lay: _Layout, vel):
+    def lane(r, m, a0, b0):
+        nis, tis, *out = velocity_contact_math_s(
+            r(4), r(5), r(6), r(7), r(8), r(9), r(10), r(11),
+            (r(12), r(14)), (r(13), r(15)), (r(16), r(18)), (r(17), r(19)),
+            (r(20), r(21)), (r(22), r(23)), (r(24), r(25)),
+            r(26), r(27), r(28), r(29), r(30), r(31), r(3).to(torch.int32),
+            (r(47), r(48)), (r(49), r(50)), *a0, *b0, m)
+        packed[:, 47:51] = torch.stack([nis[0], nis[1], tis[0], tis[1]], 1)
+        return out[:3], out[3:]
+
+    return _sweep(packed, lay, vel, lane)
+
+
+def _pos_sweep(packed, lay: _Layout, pos):
+    def lane(r, m, a0, b0):
+        *out, ms = position_contact_math_s(
+            r(46).to(torch.int32), r(3).to(torch.int32), r(6), r(7), r(8), r(9),
+            r(40), r(41), r(42), r(43), r(44), r(45),
+            r(38), r(39), r(36), r(37), (r(32), r(34)), (r(33), r(35)),
+            *a0, *b0, m, settings.BAUMGARTE, settings.MAX_LINEAR_CORRECTION)
+        packed[:, MIN_SEP_ROW] = torch.where(m, ms, r(MIN_SEP_ROW))
+        return out[:3], out[3:]
+
+    return _sweep(packed, lay, pos, lane)
+
+
+def _unpack(packed, lay: _Layout):
+    nw, _, nc = packed.shape
+    rows = packed[:, [47, 48, 49, 50, MIN_SEP_ROW]]           # (W, 5, C)
+    aux = packed.new_zeros(nw, AUX_ROWS, nc + 1)
+    dest = torch.where(lay.used, lay.slot, nc)
+    aux.scatter_(2, dest[:, None, :].expand(-1, AUX_ROWS, -1), rows)
+    return aux[..., :nc].contiguous()
+
+
+def pack_packed_plain(blob, perm, color_start):
+    """PyTorch `pack_packed`; unused positions come out 0."""
+    return _pack(blob, _packed_layout(perm, color_start))
+
+
+def vel_iter_packed_plain(packed, perm, color_start, dyn_ab, vel):
+    return _vel_sweep(packed, _packed_layout(perm, color_start, dyn_ab), vel)
+
+
+def pos_iter_packed_plain(packed, perm, color_start, dyn_ab, pos):
+    return _pos_sweep(packed, _packed_layout(perm, color_start, dyn_ab), pos)
+
+
+def unpack_packed_plain(packed, perm, color_start):
+    return _unpack(packed, _packed_layout(perm, color_start))
+
+
+SANDWICH = Sandwich(pack_packed, vel_iter_packed, pos_iter_packed, unpack_packed)
+SANDWICH_PLAIN = Sandwich(pack_packed_plain, vel_iter_packed_plain,
+                          pos_iter_packed_plain, unpack_packed_plain)
+
+
 def solve_middle_plain(blob, perm, color_start, dyn_ab, vel, pos, movable,
                        dt: float, velocity_iterations: int,
                        position_iterations: int):
-    """PyTorch solve middle (same arguments and results as the kernel)."""
-    nw, _, nc = blob.shape
-    nb = vel.shape[-1]
-    mc = color_start.shape[-1] - 1
-    slot, used, color, chunk, dyn_a, dyn_b = _packed_layout(
-        perm, color_start, dyn_ab, mc)
-    pb = torch.gather(blob, 2, slot[:, None, :].expand(-1, BLOB_ROWS, -1))
-    r = lambda k: pb[:, k]                                    # (W, C) row
-    act = used & (r(0) > 0.5)
-    ia = r(1).long()
-    ib = r(2).long()
-    pc = r(3).to(torch.int32)
-    imp = [pb[:, 47 + i].clone() for i in range(4)]          # ni0 ni1 ti0 ti1
-    min_sep = torch.zeros_like(imp[0])
-    passes = _passes(color_start)
-    dump = torch.full_like(ia, nb)
-
-    def lane_mask(c, k):
-        return act & (color == c) & (chunk == k)
-
-    def gather3(state, idx):
-        g = torch.gather(state, 2, idx[:, None, :].expand(-1, 3, -1))
-        return g[:, 0], g[:, 1], g[:, 2]
-
-    vel_s = torch.cat([vel, vel.new_zeros(nw, 3, 1)], 2)
+    """PyTorch solve middle (same arguments and results as the kernel):
+    the four plain sandwich functions, composed over one layout."""
+    lay = _packed_layout(perm, color_start, dyn_ab)
+    packed = _pack(blob, lay)
     for _ in range(velocity_iterations):
-        for c, k in passes:
-            m = lane_mask(c, k)
-            vax0, vay0, wa0 = gather3(vel_s, ia)
-            vbx0, vby0, wb0 = gather3(vel_s, ib)
-            nis, tis, vax, vay, wa, vbx, vby, wb = velocity_contact_math_s(
-                r(4), r(5), r(6), r(7), r(8), r(9), r(10), r(11),
-                (r(12), r(14)), (r(13), r(15)), (r(16), r(18)), (r(17), r(19)),
-                (r(20), r(21)), (r(22), r(23)), (r(24), r(25)),
-                r(26), r(27), r(28), r(29), r(30), r(31), pc,
-                (imp[0], imp[1]), (imp[2], imp[3]),
-                vax0, vay0, wa0, vbx0, vby0, wb0, m)
-            imp = [nis[0], nis[1], tis[0], tis[1]]
-            da = torch.stack([vax - vax0, vay - vay0, wa - wa0], 1)
-            db = torch.stack([vbx - vbx0, vby - vby0, wb - wb0], 1)
-            _apply(vel_s, torch.where(m & dyn_a, ia, dump),
-                   torch.where(m & dyn_b, ib, dump), da, db)
-
-    v = vel_s[:, 0:2, :nb].transpose(1, 2)
-    c_, a_, v, w = integrate_positions(pos[:, 0:2].transpose(1, 2), pos[:, 2],
-                                       v, vel_s[:, 2, :nb], dt, movable)
-    vel_out = torch.stack([v[..., 0], v[..., 1], w], 1)
-    pos_s = torch.cat([torch.stack([c_[..., 0], c_[..., 1], a_], 1),
-                       pos.new_zeros(nw, 3, 1)], 2)
-
+        vel = _vel_sweep(packed, lay, vel)
+    c, a, v, w = integrate_positions(pos[:, 0:2].transpose(1, 2), pos[:, 2],
+                                     vel[:, 0:2].transpose(1, 2), vel[:, 2],
+                                     dt, movable)
+    vel = torch.stack([v[..., 0], v[..., 1], w], 1)
+    pos = torch.stack([c[..., 0], c[..., 1], a], 1)
     for _ in range(position_iterations):
-        for c, k in passes:
-            m = lane_mask(c, k)
-            cax0, cay0, aa0 = gather3(pos_s, ia)
-            cbx0, cby0, ab0 = gather3(pos_s, ib)
-            cax, cay, aa, cbx, cby, ab, ms = position_contact_math_s(
-                r(46).to(torch.int32), pc, r(6), r(7), r(8), r(9),
-                r(40), r(41), r(42), r(43), r(44), r(45),
-                r(38), r(39), r(36), r(37), (r(32), r(34)), (r(33), r(35)),
-                cax0, cay0, aa0, cbx0, cby0, ab0, m,
-                settings.BAUMGARTE, settings.MAX_LINEAR_CORRECTION)
-            min_sep = torch.where(m, ms, min_sep)
-            da = torch.stack([cax - cax0, cay - cay0, aa - aa0], 1)
-            db = torch.stack([cbx - cbx0, cby - cby0, ab - ab0], 1)
-            _apply(pos_s, torch.where(m & dyn_a, ia, dump),
-                   torch.where(m & dyn_b, ib, dump), da, db)
-
-    # impulses + min separation back to slot order
-    rows = torch.stack(imp + [min_sep], 1)                    # (W, 5, C)
-    aux = blob.new_zeros(nw, AUX_ROWS, nc + 1)
-    dest = torch.where(used, slot, nc)
-    aux.scatter_(2, dest[:, None, :].expand(-1, AUX_ROWS, -1), rows)
-    return vel_out.contiguous(), pos_s[..., :nb].contiguous(), aux[..., :nc].contiguous()
+        pos = _pos_sweep(packed, lay, pos)
+    return vel.contiguous(), pos.contiguous(), _unpack(packed, lay)

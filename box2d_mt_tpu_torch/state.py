@@ -10,8 +10,9 @@ Slot conventions (as in the JAX package):
   * empty fixture slots have `body == -1`
   * empty contact slots have `f_a == -1`
 
-Joints are not ported yet: `Joints` is an empty placeholder and a state
-with any joint slot is refused.
+Joints are typed blocks, one per joint class, as in the JAX package.
+Four are ported (revolute, distance, prismatic, weld); a state with a
+non-empty block of another type is refused by name.
 """
 
 from __future__ import annotations
@@ -165,8 +166,97 @@ class SolverCache:
 
 
 @_frozen
+class RevoluteJoints:
+    """b2RevoluteJoint (b2RevoluteJoint.h:85-204); leaves (W, J...)."""
+    active: torch.Tensor             # (W,J) bool
+    body_a: torch.Tensor             # (W,J) i32
+    body_b: torch.Tensor             # (W,J) i32
+    collide_connected: torch.Tensor  # (W,J) bool
+    local_anchor_a: torch.Tensor     # (W,J,2) f32
+    local_anchor_b: torch.Tensor     # (W,J,2)
+    reference_angle: torch.Tensor    # (W,J)
+    enable_limit: torch.Tensor       # (W,J) bool
+    lower_angle: torch.Tensor
+    upper_angle: torch.Tensor
+    enable_motor: torch.Tensor       # (W,J) bool
+    motor_speed: torch.Tensor
+    max_motor_torque: torch.Tensor
+    impulse: torch.Tensor            # (W,J,3) persistent (x, y, angular)
+    motor_impulse: torch.Tensor      # (W,J)
+    limit_state: torch.Tensor        # (W,J) i32 persistent (b2Joint.h:77-84)
+
+
+@_frozen
+class DistanceJoints:
+    """b2DistanceJoint (b2DistanceJoint.h:68-169)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    length: torch.Tensor
+    frequency: torch.Tensor          # Hz; 0 = rigid
+    damping_ratio: torch.Tensor
+    impulse: torch.Tensor            # (W,J)
+
+
+@_frozen
+class PrismaticJoints:
+    """b2PrismaticJoint (b2PrismaticJoint.h:76-196)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    local_axis_a: torch.Tensor       # (W,J,2)
+    reference_angle: torch.Tensor
+    enable_limit: torch.Tensor
+    lower_translation: torch.Tensor
+    upper_translation: torch.Tensor
+    enable_motor: torch.Tensor
+    motor_speed: torch.Tensor
+    max_motor_force: torch.Tensor
+    impulse: torch.Tensor            # (W,J,3)
+    motor_impulse: torch.Tensor
+    limit_state: torch.Tensor        # (W,J) i32 persistent
+
+
+@_frozen
+class WeldJoints:
+    """b2WeldJoint (b2WeldJoint.h:70-126)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    reference_angle: torch.Tensor
+    frequency: torch.Tensor
+    damping_ratio: torch.Tensor
+    impulse: torch.Tensor            # (W,J,3)
+
+
+@_frozen
 class Joints:
-    """Placeholder: joints are not ported yet (every block has capacity 0)."""
+    """The ported typed joint blocks (capacities may be zero)."""
+    revolute: RevoluteJoints
+    distance: DistanceJoints
+    prismatic: PrismaticJoints
+    weld: WeldJoints
+
+    @property
+    def count(self):
+        """Joint slots over all blocks."""
+        return sum(getattr(self, name).body_a.shape[-1]
+                   for name, _ in JOINT_BLOCKS)
+
+
+JOINT_BLOCKS = (("revolute", RevoluteJoints), ("distance", DistanceJoints),
+                ("prismatic", PrismaticJoints), ("weld", WeldJoints))
+# the JAX package's joint blocks that have no counterpart here yet
+UNPORTED_JOINTS = ("mouse", "friction", "rope", "motor", "wheel", "pulley", "gear")
 
 
 @_frozen
@@ -215,23 +305,34 @@ def make_empty_cache(nb: int, nc: int, nj: int, n_worlds: int = 1,
     )
 
 
+def _map_block(fn, block, cls):
+    return cls(**{f.name: fn(getattr(block, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def _map_joints(fn, joints) -> Joints:
+    """`fn` over the leaves of the ported blocks of `joints` (any object
+    with the JAX package's block and field names)."""
+    return Joints(**{name: _map_block(fn, getattr(joints, name), cls)
+                     for name, cls in JOINT_BLOCKS})
+
+
 def map_leaves(fn, state: State) -> State:
     """Apply `fn` to every leaf of `state`; returns a new State."""
-    groups = {name: cls(**{f.name: fn(getattr(getattr(state, name), f.name))
-                           for f in dataclasses.fields(cls)})
+    groups = {name: _map_block(fn, getattr(state, name), cls)
               for name, cls in _GROUPS}
-    return State(joints=Joints(), **groups,
+    return State(joints=_map_joints(fn, state.joints), **groups,
                  **{k: fn(getattr(state, k)) for k in _TOP})
 
 
-def _check_no_joints(joints) -> None:
-    if joints is None or isinstance(joints, Joints):
-        return
-    for f in dataclasses.fields(joints):
-        if np.size(np.asarray(getattr(joints, f.name).active)) > 0:
+def _check_ported_joints(joints) -> None:
+    for name in UNPORTED_JOINTS:
+        block = getattr(joints, name, None)
+        if block is not None and np.size(np.asarray(block.active)) > 0:
             raise NotImplementedError(
-                "joints are not ported yet: the state has a non-empty "
-                f"'{f.name}' joint block")
+                f"{name} joints are not ported yet: the state has a "
+                f"non-empty '{name}' joint block (ported: revolute, "
+                "distance, prismatic, weld)")
 
 
 def state_from_numpy(obj, device="cuda") -> State:
@@ -244,7 +345,7 @@ def state_from_numpy(obj, device="cuda") -> State:
     leaves are COPIED: `np.asarray` of a jax array is read-only and torch
     refuses to share read-only memory. A single-world state (gravity of
     shape (2,)) gains a leading world axis of 1."""
-    _check_no_joints(getattr(obj, "joints", None))
+    _check_ported_joints(obj.joints)
     single = np.ndim(np.asarray(obj.gravity)) == 1
 
     def conv(x):
@@ -253,10 +354,9 @@ def state_from_numpy(obj, device="cuda") -> State:
             arr = arr[None]
         return torch.from_numpy(arr).to(device)
 
-    groups = {name: cls(**{f.name: conv(getattr(getattr(obj, name), f.name))
-                           for f in dataclasses.fields(cls)})
+    groups = {name: _map_block(conv, getattr(obj, name), cls)
               for name, cls in _GROUPS}
-    return State(joints=Joints(), **groups,
+    return State(joints=_map_joints(conv, obj.joints), **groups,
                  **{k: conv(getattr(obj, k)) for k in _TOP})
 
 

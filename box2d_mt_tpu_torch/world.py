@@ -9,8 +9,10 @@ a batch of worlds, in the JAX package's phase order:
      matching, touch transitions wake bodies (`_collide_b`, `_pre_touch`).
   2. Solve: island labels + awake propagation and the constraint coloring,
      both cached across steps on graph signatures; velocity integration,
-     constraint init, warm start (`_pre_finish`); the solve middle (CUDA
-     kernel on a card); sleep (`_post_sleep_sync`).
+     constraint init, warm start (`_pre_finish`); the solve middle (one
+     CUDA kernel on a card), or for worlds with joints the sandwich: the
+     joint passes between one contact-iteration kernel per launch
+     (`_solve_sandwich_b`); sleep (`_post_sleep_sync`).
   3. Synchronize fat AABBs, refresh the pair table and carry warm-start
      state over (`_post_solve_b`).
   4. Continuous collision (`continuous=True`): behind a body-motion
@@ -20,8 +22,9 @@ a batch of worlds, in the JAX package's phase order:
 Each `lax.cond` / `lax.while_loop` predicate of the JAX program is read
 back to the host here; `Events.host_syncs` counts those reads per step.
 
-Not ported yet, and refused rather than skipped: joints, sensors, the
-circle colliders, the pre-solve/filter hooks, and the grid pair finder
+Not ported yet, and refused rather than skipped: seven of the eleven
+joint types (revolute, distance, prismatic and weld are ported), sensors,
+the circle colliders, the pre-solve/filter hooks, and the grid pair finder
 (above 1024 fixtures).
 """
 
@@ -35,15 +38,18 @@ import numpy as np
 import torch
 
 from . import settings, shapes
-from .math2d import body_xf, rot_from_angle, rot_vec, take
+from .math2d import add_rows, body_xf, rot_from_angle, rot_vec, take
 from .ops import broadphase, coloring, distance, integrate, islands
 from .ops import narrowphase as nph
 from .ops import solver as csolver
-from .ops.solve_middle import solve_middle
+from .joints import (_BLOCK_NAMES, build_joint_arrays, build_joints, init_joints,
+                     solve_joint_position, solve_joint_velocity,
+                     store_joint_impulses, warm_start_joints)
+from .ops.solve_middle import SANDWICH, Sandwich, solve_middle
 from .ops.toi import time_of_impact_lanes
 from .ops.sync import HostSyncs
-from .state import (Bodies, Contacts, Fixtures, Joints, SolverCache, State,
-                    make_empty_cache)
+from .state import (UNPORTED_JOINTS, Bodies, Contacts, Fixtures, Joints,
+                    SolverCache, State, make_empty_cache)
 
 
 class Events(NamedTuple):
@@ -96,6 +102,7 @@ class _PreSolve(NamedTuple):
     dyn_a: torch.Tensor
     dyn_b: torch.Tensor
     cc_active: torch.Tensor
+    dt_ratio: torch.Tensor     # (W,) this dt over the previous step's
     begin_touch: torch.Tensor
     end_touch: torch.Tensor
 
@@ -108,6 +115,10 @@ class _Mids(NamedTuple):
     v: torch.Tensor
     w: torch.Tensor
     min_sep: torch.Tensor
+    # worlds with joints: per-body "every joint here converged" and the
+    # joints with this step's impulses and limit states
+    jok: Optional[torch.Tensor] = None
+    joints: Optional[Joints] = None
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +260,7 @@ def _pre_finish(state: State, pt: _PreTouch, labels, awake, cc_active,
         non_static=pt.non_static, solve_mask=solve_mask, c0=c0, a0=a0,
         cc=cc, color=color, color_overflow=color_overflow, ni_it=ni_it,
         ti_it=ti_it, bs=bs, ba=ba, bb=bb, dyn_a=pt.dyn_a, dyn_b=pt.dyn_b,
-        cc_active=cc_active, begin_touch=pt.begin_touch,
+        cc_active=cc_active, dt_ratio=dt_ratio, begin_touch=pt.begin_touch,
         end_touch=pt.end_touch)
 
 
@@ -276,12 +287,9 @@ def middle_inputs(pre: _PreSolve, c, a, max_colors: int):
             pre.solve_mask.contiguous())
 
 
-def _solve_middle_b(c, a, pre: _PreSolve, dt: float, velocity_iterations,
-                    position_iterations, max_colors, middle) -> _Mids:
-    """Contact velocity/position iterations over the batch via the solve
-    middle; impulses of lanes not solved this step keep their values."""
-    args = middle_inputs(pre, c, a, max_colors)
-    vel, pos, aux = middle(*args, dt, velocity_iterations, position_iterations)
+def _mids_of(pre: _PreSolve, vel, pos, aux, **joint_results) -> _Mids:
+    """Body planes and slot-order aux rows as the post phase takes them;
+    impulses of lanes not solved this step keep their values."""
     solved = pre.cc.active & (pre.color >= 0)
     ni_it = torch.where(solved[..., None], aux[:, 0:2].transpose(1, 2), pre.ni_it)
     ti_it = torch.where(solved[..., None], aux[:, 2:4].transpose(1, 2), pre.ti_it)
@@ -289,7 +297,55 @@ def _solve_middle_b(c, a, pre: _PreSolve, dt: float, velocity_iterations,
     return _Mids(ni_it=ni_it, ti_it=ti_it,
                  c=pos[:, 0:2].transpose(1, 2).contiguous(), a=pos[:, 2],
                  v=vel[:, 0:2].transpose(1, 2).contiguous(), w=vel[:, 2],
-                 min_sep=min_sep)
+                 min_sep=min_sep, **joint_results)
+
+
+def _solve_middle_b(c, a, pre: _PreSolve, dt: float, velocity_iterations,
+                    position_iterations, max_colors, middle) -> _Mids:
+    """Contact velocity/position iterations over a batch of joint-free
+    worlds via the solve middle."""
+    args = middle_inputs(pre, c, a, max_colors)
+    vel, pos, aux = middle(*args, dt, velocity_iterations, position_iterations)
+    return _mids_of(pre, vel, pos, aux)
+
+
+def _rows(lin, ang):
+    """(W, N, 2) and (W, N) as the kernels' (W, 3, N) planes."""
+    return torch.stack([lin[..., 0], lin[..., 1], ang], 1)
+
+
+def _solve_sandwich_b(states: State, pre: _PreSolve, dt: float,
+                      velocity_iterations, position_iterations, warm_starting,
+                      max_colors, sandwich: Sandwich, syncs: HostSyncs) -> _Mids:
+    """The solve middle of worlds with joints, in the reference island
+    order (b2Island.cpp:268-335): per velocity iteration the joints then
+    one contact sweep, per position iteration one contact sweep then the
+    joints. The packed contact table persists between the sweeps'
+    launches; the joint passes are PyTorch (joints/solver.py)."""
+    bodies = states.bodies
+    blob, perm, color_start, dyn_ab, vel, _, _ = middle_inputs(
+        pre, bodies.c, bodies.a, max_colors)
+    layout = (perm, color_start, dyn_ab)
+    packed = sandwich.pack(blob, perm, color_start)
+    v, w = vel[:, 0:2].transpose(1, 2), vel[:, 2]
+    jdata, jstate = init_joints(
+        states.joints, bodies, pre.awake, v, w, dt, pre.dt_ratio, warm_starting,
+        bodies.capacity, max_colors, syncs=syncs)
+    v, w = warm_start_joints(jdata, jstate, v, w)
+    for _ in range(velocity_iterations):
+        jstate, v, w = solve_joint_velocity(jdata, jstate, v, w, dt)
+        vel = sandwich.vel_iter(packed, *layout, _rows(v, w).contiguous())
+        v, w = vel[:, 0:2].transpose(1, 2), vel[:, 2]
+    c, a, v, w = integrate.integrate_positions(bodies.c, bodies.a, v, w, dt,
+                                               pre.solve_mask)
+    jok = torch.ones_like(pre.solve_mask)
+    for _ in range(position_iterations):
+        pos = sandwich.pos_iter(packed, *layout, _rows(c, a).contiguous())
+        c, a, jok = solve_joint_position(
+            jdata, jstate, pos[:, 0:2].transpose(1, 2), pos[:, 2])
+    aux = sandwich.unpack(packed, perm, color_start)
+    return _mids_of(pre, _rows(v, w), _rows(c, a), aux, jok=jok,
+                    joints=store_joint_impulses(states.joints, jstate))
 
 
 def _post_sleep_sync(state: State, pre: _PreSolve, dt: float, allow_sleep,
@@ -307,6 +363,8 @@ def _post_sleep_sync(state: State, pre: _PreSolve, dt: float, allow_sleep,
     island_ok = torch.ones((nw, nb + 1), dtype=torch.bool, device=c_label.device)
     island_ok.scatter_(1, torch.where(pre.cc_active & ~contact_ok, c_label, nb),
                        False)
+    if mids.jok is not None:
+        island_ok.scatter_(1, torch.where(mids.jok, nb, pre.labels.long()), False)
 
     bodies = dataclasses.replace(
         bodies, c=mids.c, a=mids.a, c0=pre.c0, a0=pre.a0, v=mids.v, w=mids.w,
@@ -333,8 +391,9 @@ def _post_sleep_sync(state: State, pre: _PreSolve, dt: float, allow_sleep,
                                   float(np.float32(1.0) / np.float32(dt)))
     else:
         inv_dt0 = state.inv_dt0
-    state_mid = dataclasses.replace(state, bodies=bodies, fixtures=fx,
-                                    contacts=contacts, inv_dt0=inv_dt0)
+    state_mid = dataclasses.replace(
+        state, bodies=bodies, fixtures=fx, contacts=contacts, inv_dt0=inv_dt0,
+        joints=state.joints if mids.joints is None else mids.joints)
     return state_mid, moved
 
 
@@ -374,20 +433,6 @@ def _post_solve_b(states: State, pre: _PreSolve, dt: float, allow_sleep,
 # --------------------------------------------------------------------------
 # continuous collision (the TOI phase)
 # --------------------------------------------------------------------------
-
-
-def _add_rows(target, idx, delta):
-    """target (W, N, K) + the sum of delta (W, M, K) rows at idx (W, M).
-    The deltas are summed first (into zeros, in lane order: index_put_
-    with accumulate is sequential on a CPU and sort-based, so ordered and
-    deterministic, on a card) and then added, as the JAX package's one-hot
-    scatter_add does; a row hit by one lane gets exactly its delta."""
-    nw, n = target.shape[:2]
-    rows = (idx.long() + n * torch.arange(nw, device=idx.device)[:, None]).reshape(-1)
-    acc = torch.zeros((nw * n,) + target.shape[2:], dtype=target.dtype,
-                      device=target.device)
-    acc.index_put_((rows,), delta.reshape((-1,) + target.shape[2:]), accumulate=True)
-    return target + acc.reshape(target.shape)
 
 
 def _min_at(n, idx, vals):
@@ -758,7 +803,7 @@ def _solve_toi_b(states: State, dt: float, velocity_iterations: int,
                    cA, aA, c0A, a0A, al0A, vA, wA, awA)
         dB = delta(solve & ns_b, cBfx, cBfy, aBf, cbx, cby, ab_, vbx, vby, wb_,
                    cB, aB, c0B, a0B, al0B, vB, wB, awB)
-        bp = _add_rows(bp, kbab, torch.cat([dA, dB], 1))
+        bp = add_rows(bp, kbab, torch.cat([dA, dB], 1))
         if toi_neighbors:
             bp, ntouch = island.commit(bp, ntouch, h)
         lane_touch = lane_touch | solve
@@ -766,9 +811,9 @@ def _solve_toi_b(states: State, dt: float, velocity_iterations: int,
     # sub-step counts and TOI touches back to contact slots: a sub-step that
     # found a manifold makes the pair touching now and fires BeginContact
     # this step (b2World::StepSolveTOI's Contact::Update)
-    tc_add = _add_rows(torch.zeros((nw, nc, 2), device=dev), sel,
-                       torch.stack([lane_tc - lane_tc0,
-                                    lane_touch.to(torch.float32)], -1))
+    tc_add = add_rows(torch.zeros((nw, nc, 2), device=dev), sel,
+                      torch.stack([lane_tc - lane_tc0,
+                                   lane_touch.to(torch.float32)], -1))
     toi_touch = (tc_add[..., 1] > 0.5) | ntouch
     contacts2 = dataclasses.replace(
         contacts, toi_count=contacts.toi_count + tc_add[..., 0].to(torch.int32),
@@ -901,7 +946,7 @@ class _MiniIsland:
         z3 = torch.zeros_like(d3)
         d6 = torch.where(self.side_a[..., None], torch.cat([d3, z3], -1),
                          torch.cat([z3, d3], -1))
-        return _add_rows(lanes6, self.nparent, d6)
+        return add_rows(lanes6, self.nparent, d6)
 
     def position_passes(self, pos):
         """The neighbor constraints against the live TOI-body pose, one
@@ -991,7 +1036,7 @@ class _MiniIsland:
         d_vel = torch.stack([ovx - self.o_v[..., 0], ovy - self.o_v[..., 1],
                              ow - self.o_w], -1) * cf[..., None]
         d_awk = (pf * (1.0 - og[..., 10]))[..., None]
-        return _add_rows(bp, self.other_body, torch.cat([d_pos, d_vel, d_awk], -1)), ntouch
+        return add_rows(bp, self.other_body, torch.cat([d_pos, d_vel, d_awk], -1)), ntouch
 
 
 def possible_kinds(state: State) -> tuple:
@@ -1023,7 +1068,7 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
                  kinds=nph.ALL_KINDS, toi_capacity=None,
                  pre_solve_fn=None, filter_fn=None,
                  toi_neighbors: bool = True, *,
-                 middle=None, toi=None) -> Tuple[State, Events]:
+                 middle=None, toi=None, sandwich=None) -> Tuple[State, Events]:
     """One world-step over a batch of worlds (leading axis on every State
     leaf), with the JAX package's signature and semantics.
 
@@ -1034,7 +1079,10 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
     implementations (defaults `ops.solve_middle.solve_middle` and
     `ops.toi.time_of_impact_lanes`: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors); `solve_middle_plain` and
-    `time_of_impact_lanes_plain` run the plain path on a card."""
+    `time_of_impact_lanes_plain` run the plain path on a card. A batch
+    with joint slots runs the sandwich instead of `middle`: `sandwich` is
+    an `ops.solve_middle.Sandwich` of its four functions (default
+    `SANDWICH`, `SANDWICH_PLAIN` for the plain path on a card)."""
     if pre_solve_fn is not None or filter_fn is not None:
         raise NotImplementedError("the pre-solve and contact-filter hooks "
                                   "are not ported yet")
@@ -1044,6 +1092,7 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
             "large-world coloring tier tracks per-body colors as 32-bit masks")
     middle = middle or solve_middle
     toi = toi or time_of_impact_lanes
+    sandwich = sandwich or SANDWICH
     if toi_capacity is None:
         toi_capacity = max(32, states.contacts.capacity // 8)
     dt = float(np.float32(dt))
@@ -1076,7 +1125,7 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
             host_syncs=syncs.count)
     new_state, events = _step_active(
         states, dt, velocity_iterations, position_iterations, warm_starting,
-        allow_sleep, max_colors, kinds, middle, syncs)
+        allow_sleep, max_colors, kinds, middle, sandwich, syncs)
     if continuous and toi_rounds > 0:
         new_state, toi_overflow, toi_begin = _continuous(
             new_state, dt, velocity_iterations, toi_rounds, kinds,
@@ -1110,20 +1159,26 @@ def _continuous(states: State, dt: float, velocity_iterations, toi_rounds,
 
 def _step_active(states: State, dt: float, velocity_iterations,
                  position_iterations, warm_starting, allow_sleep, max_colors,
-                 kinds, middle, syncs: HostSyncs):
+                 kinds, middle, sandwich, syncs: HostSyncs):
     """The phase pipeline with the cross-step graph-pass cache: island
-    labels and colors depend only on the contact graph, so they are reused
-    while the batch-global signatures match (world.py:2099-2185)."""
+    labels and colors depend only on the contact and joint graph, so they
+    are reused while the batch-global signatures match
+    (world.py:2099-2185)."""
     manifold, ba, bb, unsupported = _collide_b(states, kinds)
     nb = states.bodies.capacity
     cache = states.cache
     pt = _pre_touch(states, manifold, ba, bb)
     f_a, f_b = states.contacts.f_a, states.contacts.f_b
+    jb_a, jb_b, j_active = build_joint_arrays(states.joints)
     valid_all = cache.valid.all()
     table_same = (f_a == cache.sig_f_a).all() & (f_b == cache.sig_f_b).all()
     labels_same = (valid_all & table_same
                    & (pt.solvable == cache.sig_solv).all()
                    & (pt.non_static == cache.sig_ns).all())
+    if jb_a is not None:
+        labels_same = (labels_same & (j_active == cache.sig_jact).all()
+                       & (jb_a == cache.sig_jba).all()
+                       & (jb_b == cache.sig_jbb).all())
     bad, labels_same = syncs.flags(unsupported, labels_same)
     if bad:
         raise NotImplementedError(
@@ -1132,9 +1187,14 @@ def _step_active(states: State, dt: float, velocity_iterations,
             "edge-polygon)")
     if labels_same:
         labels = cache.labels
-    else:
+    elif jb_a is None:
         labels = islands.island_labels(nb, ba, bb, pt.solvable, pt.non_static,
                                        syncs=syncs)
+    else:
+        # joint edges join islands like touching contacts
+        labels = islands.island_labels(
+            nb, torch.cat([ba, jb_a.long()], 1), torch.cat([bb, jb_b.long()], 1),
+            torch.cat([pt.solvable, j_active], 1), pt.non_static, syncs=syncs)
     awake, cc_active = _cc_active_of(pt, labels, ba, bb)
     colors_same = (valid_all & table_same & (cc_active == cache.sig_cc).all()
                    & (pt.dyn_a == cache.sig_dyn_a).all()
@@ -1151,12 +1211,20 @@ def _step_active(states: State, dt: float, velocity_iterations,
         color=color, rank=rank, color_overflow=color_overflow,
         sig_solv=pt.solvable, sig_ns=pt.non_static, sig_f_a=f_a, sig_f_b=f_b,
         sig_cc=cc_active, sig_dyn_a=pt.dyn_a, sig_dyn_b=pt.dyn_b)
+    if jb_a is not None:
+        new_cache = dataclasses.replace(new_cache, sig_jact=j_active,
+                                        sig_jba=jb_a, sig_jbb=jb_b)
 
     pre = _pre_finish(states, pt, labels, awake, cc_active, color,
                       color_overflow, dt, warm_starting, ba, bb)
-    mids = _solve_middle_b(states.bodies.c, states.bodies.a, pre, dt,
-                           velocity_iterations, position_iterations,
-                           max_colors, middle)
+    if jb_a is None:
+        mids = _solve_middle_b(states.bodies.c, states.bodies.a, pre, dt,
+                               velocity_iterations, position_iterations,
+                               max_colors, middle)
+    else:
+        mids = _solve_sandwich_b(states, pre, dt, velocity_iterations,
+                                 position_iterations, warm_starting, max_colors,
+                                 sandwich, syncs)
     new_state, events = _post_solve_b(states, pre, dt, allow_sleep, mids, syncs)
     return dataclasses.replace(new_state, cache=new_cache), events
 
@@ -1223,12 +1291,14 @@ class _FixtureDef:
 
 class WorldBuilder:
     """Host-side world construction; `freeze()` yields a one-world State.
-    Bodies and polygon/edge fixtures only: joints are not ported yet."""
+    Bodies, polygon/edge fixtures and revolute, distance, prismatic and
+    weld joints."""
 
     def __init__(self, gravity=(0.0, -10.0)):
         self.gravity = tuple(gravity)
         self._bodies: list = []
         self._fixtures: list = []
+        self._joints: dict = {}   # kind -> list of def dicts
 
     def create_body(self, body_type=settings.STATIC_BODY, position=(0.0, 0.0),
                     angle=0.0, linear_velocity=(0.0, 0.0), angular_velocity=0.0,
@@ -1255,14 +1325,103 @@ class WorldBuilder:
             filter_category, filter_mask, filter_group, thick_shape))
         return len(self._fixtures) - 1
 
+    def _add_joint(self, kind: str, **kw) -> int:
+        lst = self._joints.setdefault(kind, [])
+        lst.append(kw)
+        return len(lst) - 1
+
+    def create_joint_raw(self, kind: str, **fields) -> int:
+        """Append a joint from raw local-frame def fields (local anchors,
+        axes, reference angles, ...), bypassing the world-anchor helpers."""
+        if kind not in _BLOCK_NAMES:
+            raise ValueError(f"unknown joint kind: {kind}")
+        if kind in UNPORTED_JOINTS:
+            raise NotImplementedError(f"{kind} joints are not ported yet")
+        return self._add_joint(kind, **fields)
+
+    def create_revolute_joint(self, body_a, body_b, anchor, *,
+                              collide_connected=False, enable_limit=False,
+                              lower_angle=0.0, upper_angle=0.0,
+                              enable_motor=False, motor_speed=0.0,
+                              max_motor_torque=0.0, reference_angle=None):
+        """b2RevoluteJointDef::Initialize (world anchor)."""
+        if reference_angle is None:
+            reference_angle = self._bodies[body_b].angle - self._bodies[body_a].angle
+        return self._add_joint(
+            "revolute", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor),
+            local_anchor_b=self._to_local(body_b, anchor),
+            reference_angle=reference_angle,
+            collide_connected=collide_connected, enable_limit=enable_limit,
+            lower_angle=lower_angle, upper_angle=upper_angle,
+            enable_motor=enable_motor, motor_speed=motor_speed,
+            max_motor_torque=max_motor_torque)
+
+    def create_distance_joint(self, body_a, body_b, anchor_a, anchor_b, *,
+                              collide_connected=False, frequency=0.0,
+                              damping_ratio=0.0, length=None):
+        if length is None:
+            length = math.dist(anchor_a, anchor_b)
+        return self._add_joint(
+            "distance", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor_a),
+            local_anchor_b=self._to_local(body_b, anchor_b),
+            length=max(length, settings.LINEAR_SLOP),
+            frequency=frequency, damping_ratio=damping_ratio,
+            collide_connected=collide_connected)
+
+    def create_prismatic_joint(self, body_a, body_b, anchor, axis, *,
+                               collide_connected=False, enable_limit=False,
+                               lower_translation=0.0, upper_translation=0.0,
+                               enable_motor=False, motor_speed=0.0,
+                               max_motor_force=0.0, reference_angle=None):
+        if reference_angle is None:
+            reference_angle = self._bodies[body_b].angle - self._bodies[body_a].angle
+        return self._add_joint(
+            "prismatic", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor),
+            local_anchor_b=self._to_local(body_b, anchor),
+            local_axis_a=self._to_local_vector(body_a, axis),
+            reference_angle=reference_angle,
+            collide_connected=collide_connected, enable_limit=enable_limit,
+            lower_translation=lower_translation,
+            upper_translation=upper_translation, enable_motor=enable_motor,
+            motor_speed=motor_speed, max_motor_force=max_motor_force)
+
+    def create_weld_joint(self, body_a, body_b, anchor, *,
+                          collide_connected=False, frequency=0.0,
+                          damping_ratio=0.0, reference_angle=None):
+        if reference_angle is None:
+            reference_angle = self._bodies[body_b].angle - self._bodies[body_a].angle
+        return self._add_joint(
+            "weld", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor),
+            local_anchor_b=self._to_local(body_b, anchor),
+            reference_angle=reference_angle,
+            frequency=frequency, damping_ratio=damping_ratio,
+            collide_connected=collide_connected)
+
     def __getattr__(self, name):
-        # the JAX package's WorldBuilder joint methods (create_*_joint,
-        # create_joint_raw)
-        if name.startswith("create_") and "joint" in name:
+        # the JAX package's builder methods of the joint types still to come
+        if name in {f"create_{kind}_joint" for kind in UNPORTED_JOINTS}:
             def refuse(*args, **kwargs):
-                raise NotImplementedError(f"{name}: joints are not ported yet")
+                raise NotImplementedError(
+                    f"{name}: {name[7:-6]} joints are not ported yet")
             return refuse
         raise AttributeError(name)
+
+    def _to_local(self, body: int, world_point):
+        b = self._bodies[body]
+        s, c = math.sin(b.angle), math.cos(b.angle)
+        dx = world_point[0] - b.position[0]
+        dy = world_point[1] - b.position[1]
+        return (c * dx + s * dy, -s * dx + c * dy)
+
+    def _to_local_vector(self, body: int, world_vec):
+        b = self._bodies[body]
+        s, c = math.sin(b.angle), math.cos(b.angle)
+        return (c * world_vec[0] + s * world_vec[1],
+                -s * world_vec[0] + c * world_vec[1])
 
     def freeze(self, body_capacity: Optional[int] = None,
                fixture_capacity: Optional[int] = None,
@@ -1270,9 +1429,9 @@ class WorldBuilder:
                joint_capacity: Optional[dict] = None,
                filter_fn=None, device="cuda") -> State:
         """Pack into a one-world State on `device` (the card unless the
-        caller asks for another), with the initial fat AABBs and pair table. Capacities default as in the JAX package."""
-        if joint_capacity:
-            raise NotImplementedError("joints are not ported yet")
+        caller asks for another), with the initial fat AABBs and pair
+        table. Capacities default as in the JAX package; `joint_capacity`
+        maps a joint kind to the slots to preallocate."""
         if filter_fn is not None:
             raise NotImplementedError("the contact-filter hook is not ported yet")
         nb = body_capacity or _next_pow2(len(self._bodies))
@@ -1289,11 +1448,12 @@ class WorldBuilder:
         fixtures = Fixtures(**{k: t(v) for k, v in
                                _pack_fixtures(self._fixtures, nf).items()})
         contacts = Contacts(**{k: t(v) for k, v in _empty_contacts(nc).items()})
+        joints = build_joints(self._joints, joint_capacity, device)
         state = State(
-            bodies=bodies, fixtures=fixtures, contacts=contacts, joints=Joints(),
+            bodies=bodies, fixtures=fixtures, contacts=contacts, joints=joints,
             gravity=t(np.asarray(self.gravity, np.float32)),
             inv_dt0=t(np.float32(0.0)), pairs_dirty=t(False),
-            cache=make_empty_cache(nb, nc, 0, 1, device))
+            cache=make_empty_cache(nb, nc, joints.count, 1, device))
         return _init_broadphase(state)
 
 

@@ -41,7 +41,28 @@ on any failure:
      events, after warm-up) on the main path's recorded inputs, and its
      bound: the bytes that call must move (K1: the solved lanes' rows;
      K2: the active lanes' rows and each proxy's own vertices) over the
-     HBM rate, or its f32 operations over the f32 peak, the larger.
+     HBM rate, or its f32 operations over the f32 peak, the larger;
+  9. the sandwich (K3 pack, K4 velocity sweep, K5 position sweep, K6
+     unpack) against K1 on a joint-free batch: on phase 2's captured
+     64 x pyramid(10) inputs K3 -> 8 x K4 -> integrate_positions ->
+     3 x K5 -> K6 gives K1's three outputs (same tolerance as phase 2);
+ 10. joint worlds, the sandwich's main path: 256 x tumbler(200) and
+     512 x chain_links(30) for 120 and 180 steps (the chain's tip reaches
+     the ground at step 134), counting K3-K6 launches
+     (K3 and K6 once, K4 8 times and K5 3 times per solved step); no NaN,
+     the color overflow reported, every tumbler box inside the container
+     (|x|, |y| < 10.5 in the turning container's frame), every chain
+     plank above y = -0.2;
+     worlds*steps/s, host syncs and CUDA kernels per step. The sandwich's
+     inputs are recorded through the `sandwich=` hook, and afterwards each
+     of K3-K6 is held against its plain version on the inputs of the step
+     with the most solved lanes (every output and the packed table equal
+     to atol 1e-5 positions, 1e-4 velocities and impulses);
+ 11. the whole step of a joint world through the kernels vs through the
+     plain versions, 32 x tumbler(200) for 20 steps (c, a to 2e-5, v and
+     the joint impulses to 1e-4, awake equal);
+ 12. K3-K6: time per call against the plain versions on the tumbler's
+     recorded inputs, and each one's bound (the solved lanes' rows).
 
 The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
@@ -65,7 +86,17 @@ KERNELS = {
                          replaces="box2d_mt_tpu/ops/pallas_solve.py:273"),
     "toi": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/toi.cu",
                 replaces="box2d_mt_tpu/ops/pallas_toi.py:48"),
+    "pack_packed": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
+                        replaces="box2d_mt_tpu/ops/pallas_solve.py:363"),
+    "vel_iter_packed": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
+                            replaces="box2d_mt_tpu/ops/pallas_solve.py:396"),
+    "pos_iter_packed": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
+                            replaces="box2d_mt_tpu/ops/pallas_solve.py:429"),
+    "unpack_packed": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
+                          replaces="box2d_mt_tpu/ops/pallas_solve.py:462"),
 }
+SOURCES = ("solve_middle", "toi")      # csrc/<name>.cu, one nvcc each
+SANDWICH_NAMES = ("pack_packed", "vel_iter_packed", "pos_iter_packed", "unpack_packed")
 # one NVIDIA H100 SXM (NVIDIA data sheet): HBM rate and f32 peak
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -74,6 +105,10 @@ F32_FLOP_PER_S = 67e12
 # and cosf as 20 operations each): K1 per solved lane per velocity and per
 # position iteration; K2 per trip of each of its four loops
 K1_OPS_VEL, K1_OPS_POS = 130, 260
+# rows of the packed table (52 a lane) that one sweep of a solved lane
+# reads and writes: velocity rows 0-31 and the impulses 47-50, which it
+# writes back; position rows 0-3, 6-9 and 32-46, and it writes min_sep
+K4_ROWS, K5_ROWS = (36, 4), (23, 1)
 K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
 
 
@@ -88,6 +123,12 @@ def batch(rows, n, device):
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.state import replicate
     return replicate(scenes.pyramid(rows, device=device), n)
+
+
+def joint_batch(scene, size, n, device):
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import replicate
+    return replicate(getattr(scenes, scene)(size, device=device), n)
 
 
 def roll(states, n_steps, check=None, **kw):
@@ -323,6 +364,215 @@ def k2_bytes(args):
     return every + n_on * per_on + n_verts * 2 * va.element_size()
 
 
+class SandwichRecorder:
+    """A `sandwich=` hook for step_batched that launches K3-K6 and keeps,
+    per step, references to the inputs that no later call changes (blob,
+    layout, each sweep's body planes) and the solved-lane count as a
+    device scalar: no copy and no host read in the step. The packed
+    table, which the sweeps update in place, is rebuilt afterwards by
+    replaying the step's launches (`replay`)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def hook(self):
+        from box2d_mt_tpu_torch.ops import solve_middle as sm
+
+        def pack(blob, perm, color_start):
+            self.steps.append(dict(blob=blob, perm=perm, color_start=color_start,
+                                   lanes=color_start[:, -1].sum(), vel=[], pos=[]))
+            return sm.pack_packed(blob, perm, color_start)
+
+        def vel_iter(packed, perm, color_start, dyn_ab, vel):
+            self.steps[-1]["dyn_ab"] = dyn_ab
+            self.steps[-1]["vel"].append(vel)
+            return sm.vel_iter_packed(packed, perm, color_start, dyn_ab, vel)
+
+        def pos_iter(packed, perm, color_start, dyn_ab, pos):
+            self.steps[-1]["pos"].append(pos)
+            return sm.pos_iter_packed(packed, perm, color_start, dyn_ab, pos)
+
+        return sm.Sandwich(pack, vel_iter, pos_iter, sm.unpack_packed)
+
+    def busiest(self):
+        """The recorded step with the most solved lanes."""
+        import torch
+        if not self.steps:
+            raise AssertionError("the sandwich was not recorded")
+        lanes = torch.stack([s["lanes"] for s in self.steps]).tolist()
+        return self.steps[max(range(len(lanes)), key=lanes.__getitem__)]
+
+
+def compare_sandwich(step, label, phase=10):
+    """Each of K3-K6 against its plain version on one recorded step.
+    Both start every comparison from the same packed table: the plain
+    pack's (unused positions 0), then advanced by replaying the step's
+    kernel launches. Returns {kernel name: max abs error} and the inputs
+    of each kernel's first call (for timing)."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    blob, perm, cs, dyn = step["blob"], step["perm"], step["color_start"], step["dyn_ab"]
+    lanes = int(cs[:, -1].sum())
+    if lanes == 0:
+        raise AssertionError(f"{label}: no contact lanes to solve")
+    used = (torch.arange(perm.shape[1], device=perm.device) < cs[:, -1:])[:, None, :]
+    err, first = {}, {}
+
+    def diff(a, b):
+        return (a - b).abs().max().item()
+
+    table = sm.pack_packed_plain(blob, perm, cs)
+    first["pack_packed"] = (blob, perm, cs)
+    err["pack_packed"] = diff(torch.where(used, sm.pack_packed(blob, perm, cs), 0.0), table)
+    errs = []
+    for i, vel in enumerate(step["vel"]):
+        if i == 0:
+            first["vel_iter_packed"] = (table.clone(), perm, cs, dyn, vel)
+        plain_table = table.clone()
+        p_out = sm.vel_iter_packed_plain(plain_table, perm, cs, dyn, vel)
+        k_out = sm.vel_iter_packed(table, perm, cs, dyn, vel)
+        errs.append(max(diff(k_out, p_out), diff(table, plain_table)))
+    err["vel_iter_packed"] = max(errs)
+    errs, pos_errs = [], []
+    for i, pos in enumerate(step["pos"]):
+        if i == 0:
+            first["pos_iter_packed"] = (table.clone(), perm, cs, dyn, pos)
+        plain_table = table.clone()
+        p_out = sm.pos_iter_packed_plain(plain_table, perm, cs, dyn, pos)
+        k_out = sm.pos_iter_packed(table, perm, cs, dyn, pos)
+        pos_errs.append(diff(k_out, p_out))
+        errs.append(diff(table, plain_table))
+    err["pos_iter_packed"] = max(errs + pos_errs)
+    first["unpack_packed"] = (table, perm, cs)
+    err["unpack_packed"] = diff(sm.unpack_packed(table, perm, cs),
+                                sm.unpack_packed_plain(table, perm, cs))
+    torch.cuda.synchronize()
+    print(f"phase {phase} K3-K6 [{label}] lanes solved={lanes} max|diff| "
+          + " ".join(f"{k}={v:.3g}" for k, v in err.items()))
+    if max(pos_errs) > 1e-5 or max(err.values()) > 1e-4:
+        raise AssertionError(f"{label}: a sandwich kernel disagrees with its "
+                             f"plain version: {err}")
+    return err, first
+
+
+def sandwich_vs_k1(args, label):
+    """K3 -> vi x K4 -> integrate_positions -> pi x K5 -> K6 against K1 on
+    the inputs of a joint-free batch; returns the max abs error."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops.integrate import integrate_positions
+    blob, perm, cs, dyn, vel, pos, movable, dt, vi, pi = args
+    k_vel, k_pos, k_aux = sm.solve_middle(*args)
+    table = sm.pack_packed(blob, perm, cs)
+    for _ in range(vi):
+        vel = sm.vel_iter_packed(table, perm, cs, dyn, vel)
+    c, a, v, w = integrate_positions(pos[:, 0:2].transpose(1, 2), pos[:, 2],
+                                     vel[:, 0:2].transpose(1, 2), vel[:, 2], dt, movable)
+    vel = torch.stack([v[..., 0], v[..., 1], w], 1).contiguous()
+    pos = torch.stack([c[..., 0], c[..., 1], a], 1).contiguous()
+    for _ in range(pi):
+        pos = sm.pos_iter_packed(table, perm, cs, dyn, pos)
+    aux = sm.unpack_packed(table, perm, cs)
+    torch.cuda.synchronize()
+    err = {"pos": (pos - k_pos).abs().max().item(), "vel": (vel - k_vel).abs().max().item(),
+           "aux": (aux - k_aux).abs().max().item()}
+    print(f"phase 9 sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
+          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}")
+    if err["pos"] > 1e-5 or err["vel"] > 1e-4 or err["aux"] > 1e-4:
+        raise AssertionError(f"{label}: the sandwich disagrees with K1: {err}")
+    return max(err.values())
+
+
+def sandwich_bytes(first):
+    """Bytes each of K3-K6 must move for these inputs, each read or
+    written once: the solved lanes' rows of the packed table that the
+    function touches, their perm and dyn_ab entries, color_start, and the
+    body planes in and out; K6 writes the whole (W, 5, C) aux."""
+    blob, perm, cs = first["pack_packed"]
+    nw, rows, nc = blob.shape
+    solved = int(cs[:, -1].sum())
+    cs_b = cs.numel() * cs.element_size()
+    planes = 2 * first["vel_iter_packed"][4].numel() * 4
+    sweep = lambda rw: solved * (4 * sum(rw) + 4 + 1) + cs_b + planes
+    return {"pack_packed": solved * (4 * rows + 4 + 4 * (rows + 1)) + cs_b,
+            "vel_iter_packed": sweep(K4_ROWS), "pos_iter_packed": sweep(K5_ROWS),
+            "unpack_packed": solved * (4 * 5 + 4) + cs_b + nw * 5 * nc * 4}, solved
+
+
+def library_calls(first):
+    """The one PyTorch call that computes (a superset of) K3 and of K6 on
+    the same inputs, for timing only: a gather of the blob rows through
+    perm, and a scatter of the five result rows into zeros. The sweeps
+    have no such call."""
+    import torch
+    blob, perm, _ = first["pack_packed"]
+    idx = perm.long()[:, None, :]
+    table = first["unpack_packed"][0]
+    rows = table[:, [47, 48, 49, 50, 51]].contiguous()
+    idx5 = idx.expand(-1, 5, -1)
+    return {"pack_packed": (torch.gather, (blob, 2, idx.expand(-1, blob.shape[1], -1))),
+            "unpack_packed": (lambda: torch.zeros_like(rows).scatter_(2, idx5, rows), ())}
+
+
+def kernels_per_step(states, n_steps=3):
+    """CUDA kernels and copies per step over a short profiled window, or
+    None when the profiler reports no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        roll(states, n_steps)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / n_steps if n else None
+
+
+def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside):
+    """The sandwich's main path on one joint scene: launch counts, health,
+    speed. Returns (record of the run, the recorder)."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    roll(joint_batch(scene, size, min(n_worlds, 8), dev), 3)    # first-use allocations
+    states = joint_batch(scene, size, n_worlds, dev)
+    rec = SandwichRecorder()
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def check(st, ev):
+        overflow.copy_(torch.maximum(overflow, ev.color_overflow.max()))
+
+    torch.cuda.synchronize()
+    counters = sm.SANDWICH + (sm.solve_middle, ktoi.time_of_impact_lanes)
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(SANDWICH_NAMES + ("solve_middle", "toi"),
+                        (f.launches for f in counters)))
+    n = len(rec.steps)                       # steps that solved
+    want = dict(pack_packed=n, vel_iter_packed=MAIN["velocity_iterations"] * n,
+                pos_iter_packed=MAIN["position_iterations"] * n, unpack_packed=n,
+                solve_middle=0)
+    label = f"{n_worlds} x {scene}({size})"
+    if n <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    b = states.bodies
+    if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
+        raise AssertionError(f"{label}: NaN/inf in the body state")
+    inside(states)
+    per_step = kernels_per_step(states)
+    print(f"phase 10 {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
+          f"{n_worlds * n_steps / elapsed:.1f} worlds*steps/s, launches={launches}, "
+          f"host syncs/step={syncs / n_steps:.2f}, CUDA kernels+copies/step="
+          f"{'not measured' if per_step is None else f'{per_step:.0f}'}, "
+          f"max color overflow={int(overflow)}, "
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
+          f"awake bodies/world={float((b.awake & (b.body_type == 2)).sum(1).float().mean()):.1f}")
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,8 +593,8 @@ def main() -> int:
 
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in builds.items():
         print(f"  {name}: nvcc {info['seconds']:.2f} s")
@@ -519,6 +769,69 @@ def main() -> int:
           f"{100 * k1_bound[0] / k1_ms:.2f}% of it), toi {k2_bound[0]:.5f} ms "
           f"({k2_bound[1]}: {k2_bytes(lanes_main)} B; kernel at "
           f"{100 * k2_bound[0] / k2_ms:.2f}% of it)")
+
+    # ---- 9. the sandwich against K1 on a joint-free batch
+    err_sw_k1 = sandwich_vs_k1(args10, "64 x pyramid(10)")
+
+    # ---- 10. joint worlds: the sandwich's main path
+    def boxes_inside(states):
+        b = states.bodies                            # slots 0, 1: ground, container
+        d = b.c[:, 2:202] - b.c[:, 1:2]
+        sn, cs_ = torch.sin(b.a[:, 1:2]), torch.cos(b.a[:, 1:2])
+        local = torch.stack([cs_ * d[..., 0] + sn * d[..., 1],
+                             -sn * d[..., 0] + cs_ * d[..., 1]], -1)
+        far = float(local.abs().max())
+        if not far < 10.5:
+            raise AssertionError(f"a tumbler box left the container: {far}")
+
+    def planks_above(states):
+        low = float(states.bodies.c[:, 1:31, 1].min())
+        if not low > -0.2:
+            raise AssertionError(f"a chain plank fell through the ground: y {low}")
+
+    launches_t, rec_t = run_joint_scene("tumbler", 200, 256, 120, dev, boxes_inside)
+    err_sw, first_t = compare_sandwich(rec_t.busiest(), "256 x tumbler(200), busiest step")
+    del rec_t
+    launches_c, rec_c = run_joint_scene("chain_links", 30, 512, 180, dev, planks_above)
+    err_c, _ = compare_sandwich(rec_c.busiest(), "512 x chain_links(30), busiest step")
+    del rec_c
+    err_sw = {k: max(v, err_c[k], err_sw_k1) for k, v in err_sw.items()}
+
+    # ---- 11. kernel path vs plain path on a joint world
+    ker, _ = roll(joint_batch("tumbler", 200, 32, dev), 20)
+    pln, _ = roll(joint_batch("tumbler", 200, 32, dev), 20, middle=sm.solve_middle_plain,
+                  toi=ktoi.time_of_impact_lanes_plain, sandwich=sm.SANDWICH_PLAIN)
+    d = {k: (getattr(ker.bodies, k) - getattr(pln.bodies, k)).abs().max().item()
+         for k in ("c", "a", "v")}
+    kr, pr = ker.joints.revolute, pln.joints.revolute
+    d["joint impulse"] = max((kr.impulse - pr.impulse).abs().max().item(),
+                             (kr.motor_impulse - pr.motor_impulse).abs().max().item())
+    awake_eq = bool(torch.equal(ker.bodies.awake, pln.bodies.awake))
+    print(f"phase 11 kernel vs plain path, 32 x tumbler(200) x 20 steps: "
+          + " ".join(f"max|d {k}|={v:.3g}" for k, v in d.items())
+          + f" awake_equal={awake_eq} touching/world="
+          f"{float(ker.contacts.touching.sum(1).float().mean()):.1f}")
+    if (d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or d["joint impulse"] > 1e-4
+            or not awake_eq):
+        raise AssertionError(f"joint world: kernel path and plain path disagree: {d}")
+
+    # ---- 12. K3-K6: time per call and bound at the tumbler's busiest step
+    sw_bytes, solved_t = sandwich_bytes(first_t)
+    sw_ops = {"pack_packed": 0, "vel_iter_packed": solved_t * K1_OPS_VEL,
+              "pos_iter_packed": solved_t * K1_OPS_POS, "unpack_packed": 0}
+    sw = {}
+    lib = library_calls(first_t)
+    for name, fn, plain in zip(SANDWICH_NAMES, sm.SANDWICH, sm.SANDWICH_PLAIN):
+        # a sweep updates its table in place: repeated calls move the
+        # impulses on, which changes no trip count and no byte moved
+        sw[name] = (time_call(fn, first_t[name]), time_call(plain, first_t[name], reps=3),
+                    bound(sw_bytes[name], sw_ops[name]),
+                    time_call(*lib[name]) if name in lib else None)
+        ms, plain_ms, bnd, lib_ms = sw[name]
+        print(f"phase 12 {name} [256 x tumbler(200), {solved_t} solved lanes]: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call; bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}: {sw_bytes[name]} B; kernel at {100 * bnd[0] / ms:.2f}% of it); "
+              f"library call {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     record = []
@@ -527,6 +840,15 @@ def main() -> int:
         record.append(dict(name=name, **KERNELS[name], launches=launches[name],
                            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
                            bound_by=bnd[1], library_ms=None))
+    for name in SANDWICH_NAMES:
+        ms, plain_ms, bnd, lib_ms = sw[name]
+        record.append(dict(name=name, **KERNELS[name], launches=launches_t[name],
+                           max_abs_err=err_sw[name], ms=ms, plain_ms=plain_ms,
+                           bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms))
+    # the tumbler has no TOI candidate (every pair is dynamic-dynamic), so
+    # of the joint scenes only the chain runs K2 as well
+    if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:
+        raise AssertionError(f"the chain's path missed a kernel: {launches_c}")
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ Elsewhere every case skips. Inputs are captured from the port's own step
 (8 x pyramid(10) after 30 steps); max_colors=3 makes the coloring
 overflow, which exercises the kernel's Jacobi chunk path. The
 time-of-impact kernel gets the lanes of the step in which a pyramid's
-bottom row reaches the ground, and of fast boxes thrown at a thin wall."""
+bottom row reaches the ground, and of fast boxes thrown at a thin wall.
+The four sandwich kernels get the inputs of one step of 8 x tumbler(40)
+(a joint world, after the boxes have landed), recorded through the
+`sandwich=` hook."""
 
 import dataclasses
 
@@ -126,3 +129,64 @@ def test_toi_kernel_matches_plain(scene):
     assert torch.equal(k_state, p_state)
     assert torch.equal(k_t, p_t)
     assert int((k_state == 3).sum()) > 0
+
+
+class _RecordedSandwich:
+    """A `sandwich=` hook that launches the kernels and keeps each call's
+    inputs; the packed table is cloned before a sweep changes it."""
+
+    def __init__(self):
+        self.calls = {"pack": [], "vel_iter": [], "pos_iter": [], "unpack": []}
+
+    def _keep(self, name, fn, args):
+        self.calls[name].append(tuple(a.clone() for a in args))
+        return fn(*args)
+
+    def hook(self):
+        return sm.Sandwich(
+            lambda *a: self._keep("pack", sm.pack_packed, a),
+            lambda *a: self._keep("vel_iter", sm.vel_iter_packed, a),
+            lambda *a: self._keep("pos_iter", sm.pos_iter_packed, a),
+            lambda *a: self._keep("unpack", sm.unpack_packed, a))
+
+
+@pytest.fixture(scope="module")
+def tumbler_calls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    states = replicate(scenes.tumbler(40, device="cuda"), 8)
+    for _ in range(75):
+        states, _ = step_batched(states, DT, max_colors=16)
+    rec = _RecordedSandwich()
+    before = [f.launches for f in sm.SANDWICH]
+    step_batched(states, DT, max_colors=16, sandwich=rec.hook())
+    assert [f.launches - b for f, b in zip(sm.SANDWICH, before)] == [1, 8, 3, 1]
+    return rec.calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pack", "vel_iter", "pos_iter", "unpack"])
+def test_sandwich_kernel_matches_plain(tumbler_calls, name):
+    """Same arithmetic in the same order (--fmad=false): every output, and
+    the packed table a sweep updates in place, equal to the bit."""
+    kernel = getattr(sm.SANDWICH, name)
+    plain = getattr(sm.SANDWICH_PLAIN, name)
+    for args in tumbler_calls[name]:
+        color_start = args[2]
+        assert int(color_start[:, -1].sum()) > 50        # real contacts
+        k_args = tuple(a.clone() for a in args)
+        p_args = tuple(a.clone() for a in args)
+        k_out, p_out = kernel(*k_args), plain(*p_args)
+        torch.cuda.synchronize()
+        if name == "pack":
+            # positions past the solved lanes are unspecified in the kernel
+            used = (torch.arange(k_out.shape[2], device="cuda")
+                    < color_start[:, -1:])[:, None, :]
+            k_out, p_out = torch.where(used, k_out, 0.0), torch.where(used, p_out, 0.0)
+        assert torch.equal(k_out, p_out)
+        if name in ("vel_iter", "pos_iter"):
+            used = (torch.arange(args[0].shape[2], device="cuda")
+                    < color_start[:, -1:])[:, None, :]
+            assert torch.equal(torch.where(used, k_args[0], 0.0),
+                               torch.where(used, p_args[0], 0.0))
+            assert not torch.equal(k_args[0], args[0])   # updated in place

@@ -101,8 +101,31 @@ def test_continuous_runs_and_unported_features_raise():
     assert torch.equal(st.bodies.c, sts.bodies.c)
     st, ev = tworld.step(st, DT, continuous=False)
     assert ev.host_syncs >= 1 and not bool(ev.toi_begin.any())
-    with pytest.raises(NotImplementedError, match="joints"):
-        tworld.WorldBuilder().create_revolute_joint(0, 1, (0.0, 0.0))
+    # the four ported joint types build; the seven others raise by name
+    wb = tworld.WorldBuilder()
+    wb.create_body()
+    wb.create_body(body_type=2, position=(1.0, 0.0))
+    wb.create_revolute_joint(0, 1, (0.0, 0.0))
+    wb.create_distance_joint(0, 1, (0.0, 0.0), (1.0, 0.0))
+    wb.create_prismatic_joint(0, 1, (0.0, 0.0), (1.0, 0.0))
+    wb.create_weld_joint(0, 1, (0.5, 0.0))
+    wb.create_joint_raw("weld", body_a=0, body_b=1)
+    jst = wb.freeze(device="cpu", joint_capacity={"distance": 3})
+    assert (jst.joints.revolute.active.shape[1], jst.joints.distance.active.shape[1],
+            jst.joints.prismatic.active.shape[1], jst.joints.weld.active.shape[1]) == (1, 3, 1, 2)
+    jst, ev = tworld.step(jst, DT)
+    assert bool(torch.isfinite(jst.bodies.c).all()) and jst.joints.count == 7
+    for kind, args in (("mouse", (1, (0.0, 0.0))), ("friction", (0, 1, (0.0, 0.0))),
+                       ("rope", (0, 1, (0.0, 0.0), (0.0, 0.0), 1.0)),
+                       ("motor", (0, 1)), ("wheel", (0, 1, (0.0, 0.0), (0.0, 1.0))),
+                       ("pulley", (0, 1, (0.0, 1.0), (1.0, 1.0), (0.0, 0.0), (1.0, 0.0))),
+                       ("gear", (("revolute", 0), ("prismatic", 0)))):
+        with pytest.raises(NotImplementedError, match=kind):
+            getattr(wb, f"create_{kind}_joint")(*args)
+        with pytest.raises(NotImplementedError, match=kind):
+            wb.create_joint_raw(kind, body_a=0, body_b=1)
+    with pytest.raises(ValueError, match="unknown"):
+        wb.create_joint_raw("hinge", body_a=0, body_b=1)
     with pytest.raises(NotImplementedError, match="hooks"):
         tworld.step_batched(st, DT, continuous=False,
                             filter_fn=lambda s, i, j: True)
