@@ -1,7 +1,7 @@
-// Contact solve middle for a batch of worlds, one thread block per world:
-// the whole middle as one kernel (K1, joint-free worlds) and, further down,
-// the same work as four kernels around the joint passes (K3-K6, "the
-// sandwich"). This header is K1's.
+// Contact solve middle for a batch of worlds: the whole middle as one
+// kernel, one thread block per world (K1, joint-free worlds) and, further
+// down, the same work as four kernels around the joint passes (K3-K6, "the
+// sandwich"; each has its own header). This header is K1's.
 //
 // K1 replaces the TPU kernel box2d_mt_tpu/ops/pallas_solve.py `_kernel` /
 // `solve_middle_pallas` (:273-349): pack the slot-order constraint rows into
@@ -19,8 +19,9 @@
 // solved a world, N = 64 bodies) that is 15.0 MB: 4.47 us at 3.35 TB/s,
 // against ~1 us for its flops (about 130 per solved lane per velocity
 // iteration and 260 per position iteration, at 67 TFLOP/s in f32).
-// chip_smoke.py computes it from each run's inputs. No single PyTorch call
-// computes the same function.
+// chip_smoke.py computes it from each run's inputs and holds the kernel's
+// time on the device (a replayed CUDA graph of launches, no wrapper in it)
+// against it. No single PyTorch call computes the same function.
 //
 // What holds it back on an H100: not flops (a lane is ~200 flops) but latency —
 // every color pass ends in a block barrier, so a sweep costs about
@@ -75,9 +76,9 @@ struct Rows {
 // One velocity lane (velocity_contact_math_s, same operation order).
 // Body rows in `s`: [vx | vy | w], each n wide. Writes the lane's impulses
 // back to the packed rows and returns the six body deltas.
-__device__ void velocity_lane(float* P, int C, int lane, const float* s, int n,
-                              float d[6], int* ia_out, int* ib_out) {
-  const Rows R{P, C, lane};
+template <class RowsT>
+__device__ void velocity_lane(const RowsT R, float* P, int C, int lane, const float* s,
+                              int n, float d[6], int* ia_out, int* ib_out) {
   const bool m = R(0) > 0.5f;
   const int ia = (int)R(1), ib = (int)R(2), pc = (int)R(3);
   const float fr = R(4), ts = R(5), ma = R(6), mb = R(7), iA = R(8), iB = R(9);
@@ -191,9 +192,9 @@ __device__ void velocity_lane(float* P, int C, int lane, const float* s, int n,
 
 // One position lane (position_contact_math_s with _psm_s, same operation
 // order). Body rows in `s`: [cx | cy | a]. Stores min(0, separation).
-__device__ void position_lane(float* P, int C, int lane, const float* s, int n,
-                              float d[6], int* ia_out, int* ib_out) {
-  const Rows R{P, C, lane};
+template <class RowsT>
+__device__ void position_lane(const RowsT R, float* P, int C, int lane, const float* s,
+                              int n, float d[6], int* ia_out, int* ib_out) {
   const bool m = R(0) > 0.5f;
   const int ia = (int)R(1), ib = (int)R(2), pc = (int)R(3);
   const float ma = R(6), mb = R(7), iA = R(8), iB = R(9);
@@ -297,8 +298,8 @@ __device__ void sweep(float* P, int C, const int* cs, int mc, const int* perm,
       for (int p = s0 + threadIdx.x; p < s1; p += blockDim.x) {
         float d[6];
         int ia, ib;
-        if (kVelocity) velocity_lane(P, C, p, s, n, d, &ia, &ib);
-        else position_lane(P, C, p, s, n, d, &ia, &ib);
+        if (kVelocity) velocity_lane(Rows{P, C, p}, P, C, p, s, n, d, &ia, &ib);
+        else position_lane(Rows{P, C, p}, P, C, p, s, n, d, &ia, &ib);
         const uint8_t f = dyn[perm[p]];
         if (f & 1) add3(s, n, ia, d);
         if (f & 2) add3(s, n, ib, d + 3);
@@ -311,8 +312,8 @@ __device__ void sweep(float* P, int C, const int* cs, int mc, const int* perm,
         if (l < cnt) {
           float d[6];
           int ia, ib;
-          if (kVelocity) velocity_lane(P, C, ch + l, s, n, d, &ia, &ib);
-          else position_lane(P, C, ch + l, s, n, d, &ia, &ib);
+          if (kVelocity) velocity_lane(Rows{P, C, ch + l}, P, C, ch + l, s, n, d, &ia, &ib);
+          else position_lane(Rows{P, C, ch + l}, P, C, ch + l, s, n, d, &ia, &ib);
           const uint8_t f = dyn[perm[ch + l]];
           for (int q = 0; q < 6; ++q) sd[6 * l + q] = d[q];
           sidx[2 * l] = (f & 1) ? ia : -1;
@@ -425,7 +426,10 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
 // in place, a position sweep its min_sep row. Body planes go through
 // shared memory inside a launch and through global memory between
 // launches. Bounds: bytes, for each of the four (the solved lanes' rows of
-// P, perm, dyn_ab and the body planes); chip_smoke.py computes them.
+// P, perm, dyn_ab and the body planes); chip_smoke.py computes them, and
+// times an empty kernel beside them: a bound of a few microseconds lies at
+// or below what any launch costs, so the sweeps and the unpack are held to
+// that floor as well.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -444,48 +448,329 @@ pack_packed_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
   }
 }
 
-// One sweep over a (W, 3, n) body plane: velocity rows [vx | vy | w] or
-// position rows [cx | cy | a].
+// ---- K4 / K5: one sweep over a (W, 3, n) body plane ------------------------
+//
+// What bounds a sweep on an H100 is latency, not its bytes (13.5 MB at
+// 256 x tumbler(200): 4 us) nor its flops: a world's colors run one after
+// the other (the tumbler: 15 colors and an overflow chunk), and each pass
+// is one warp's worth of lanes running a lane's few hundred dependent
+// instructions. That chain of passes cannot be shortened here (the
+// arithmetic and its order are fixed), so the design takes everything
+// else off it:
+//
+//   * the table is color-major, so row k of a world is one contiguous run
+//     of lanes. At kernel entry a world's threads start asynchronous
+//     16-byte copies (cp.async) of the needed rows (36 for a velocity
+//     sweep, 23 for a position sweep) of its first tiles of `tile` lanes
+//     into shared memory; the color passes read shared memory only. A
+//     world with more lanes than the buffers hold walks its tiles through
+//     the ring, the next tile's copies in flight while this one is swept.
+//     color_start, the body plane and the lanes' dynamic-endpoint flags
+//     (dyn_ab through perm) are staged by plain loads while the copies
+//     fly. A table whose rows are not 16-byte aligned (C not a multiple
+//     of 4) is staged by plain loads. (One 1-D bulk copy a row,
+//     cp.async.bulk on an mbarrier, measured no faster: a row's run is
+//     about 1 KB, and the copies are then bound by their count.)
+//   * a world gets `tw` threads (one warp at 128 slots, 256 threads from
+//     1024) and a block holds several worlds; a world's threads meet at a
+//     named barrier of their own width (__syncwarp for one warp), not at
+//     a block barrier. The host picks tw, the worlds a block, the tile
+//     and the ring depth from the static shapes (ops/solve_middle.py
+//     `sweep_shape`).
+//   * the overflow chunk's deltas are applied by all threads, each owning
+//     bodies and scanning the chunk's endpoints in lane order, so every
+//     body receives its deltas in the order the serial apply gave them
+//     (bit-identical), in ~cnt compares a thread.
+//   * a lane's impulses (or min_sep) go straight to global memory: stores
+//     of neighbouring lanes to neighbouring addresses, off the chain.
+//
+// Splitting a color at a tile border changes nothing: its lanes share no
+// dynamic body. An overflow chunk that straddles a border computes all its
+// lanes from the chunk-start state (nothing is applied in between) and is
+// applied once complete.
+
+// Rows of the packed table that a sweep reads, as staged rows 0..kR-1:
+// velocity 0-31 and 47-50; position 0-3, 6-9 and 32-46.
+constexpr int kVelRows = 36;
+constexpr int kPosRows = 23;
+
+template <bool kVelocity>
+__device__ __forceinline__ int table_row(int r) {
+  if (kVelocity) return r < 32 ? r : r + 15;
+  return r < 4 ? r : r < 8 ? r + 2 : r + 24;
+}
+
+template <bool kVelocity>
+struct StagedRows {
+  const float* p;   // the tile in shared memory, `stride` lanes a row
+  int stride;
+  int lane;         // within the tile
+  __device__ float operator()(int k) const {
+    const int r = kVelocity ? (k < 32 ? k : k - 15) : (k < 4 ? k : k < 10 ? k - 2 : k - 24);
+    return p[r * stride + lane];
+  }
+};
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// One world's shared memory, in bytes from its base (all 16-byte aligned).
+// ops/solve_middle.py `_sweep_world_bytes` repeats the sum.
+struct StagedLayout {
+  int sd, sidx, body, cs, dyn, bytes;
+  __host__ __device__ StagedLayout(int rows, int n, int C, int mc, int tile, int nbuf) {
+    const int chunk = C < kChunk ? (C + 31) & ~31 : kChunk;   // lanes an overflow chunk can hold
+    sd = nbuf * rows * tile * 4;          // after the row buffers
+    sidx = sd + 6 * chunk * 4;
+    body = sidx + 2 * chunk * 4;
+    cs = body + align16(3 * n * 4);
+    dyn = cs + align16((mc + 1) * 4);
+    bytes = dyn + align16(C);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The threads of one world: barrier `id` (1..15; 0 is __syncthreads') of
+// `width` threads, or the warp's own when the world has one warp.
+struct Group {
+  int id, width;
+  __device__ __forceinline__ void sync() const {
+    if (width == 32) __syncwarp();
+    else asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(width) : "memory");
+  }
+};
+
+// Start staging lanes [t0, t0 + cnt) of the needed rows into `dst` (`tile`
+// lanes a row): 16-byte asynchronous copies, one group a tile and thread
+// (t0 and C are multiples of 4, so a rounded-up run stays inside its row),
+// or plain loads where the rows are not 16-byte aligned.
+template <bool kVelocity>
+__device__ void load_tile(const float* P, int C, float* dst, int t0, int cnt, int tile,
+                          int tid, int tw, bool aligned) {
+  constexpr int kR = kVelocity ? kVelRows : kPosRows;
+  if (aligned) {
+    const int q = (cnt + 3) / 4;
+    for (int i = tid; i < kR * q; i += tw) {
+      const int r = i / q, l = (i - r * q) * 4;
+      cp_async16(dst + r * tile + l, P + (size_t)table_row<kVelocity>(r) * C + t0 + l);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < kR * cnt; i += tw) {
+      const int r = i / cnt, l = i - r * cnt;
+      dst[r * tile + l] = P[(size_t)table_row<kVelocity>(r) * C + t0 + l];
+    }
+  }
+}
+
+// Apply an overflow chunk's deltas in lane order (A endpoint, then B):
+// each thread owns bodies and sums their deltas in a register.
+__device__ void apply_chunk(float* s, int n, const float* sd, const int2* sidx, int cnt,
+                            int tid, int tw) {
+  for (int b = tid; b < n; b += tw) {
+    float x = s[b], y = s[n + b], z = s[2 * n + b];
+    bool hit = false;
+    for (int q = 0; q < cnt; ++q) {
+      const int2 e = sidx[q];
+      if (e.x == b) {
+        x += sd[6 * q];
+        y += sd[6 * q + 1];
+        z += sd[6 * q + 2];
+        hit = true;
+      }
+      if (e.y == b) {
+        x += sd[6 * q + 3];
+        y += sd[6 * q + 4];
+        z += sd[6 * q + 5];
+        hit = true;
+      }
+    }
+    if (hit) {
+      s[b] = x;
+      s[n + b] = y;
+      s[2 * n + b] = z;
+    }
+  }
+}
+
 template <bool kVelocity>
 __global__ void __launch_bounds__(kThreads)
 iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
                    const int* __restrict__ color_start,
                    const uint8_t* __restrict__ dyn_ab,
                    const float* __restrict__ body_in, float* __restrict__ body_out,
-                   int n, int C, int mc) {
-  extern __shared__ float smem[];
-  float* sb = smem;                          // the three body rows
-  float* sd = smem + 3 * n;                  // overflow chunk deltas
-  int* sidx = reinterpret_cast<int*>(sd + 6 * kChunk);
+                   int n_worlds, int n, int C, int mc, int tw, int tile, int nbuf,
+                   int aligned) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kR = kVelocity ? kVelRows : kPosRows;
+  const StagedLayout lay(kR, n, C, mc, tile, nbuf);
+  const int group = threadIdx.x / tw, tid = threadIdx.x - group * tw;
+  unsigned char* base = smem_raw + (size_t)group * lay.bytes;
+  float* srows = reinterpret_cast<float*>(base);
+  float* sd = reinterpret_cast<float*>(base + lay.sd);       // overflow chunk deltas
+  int2* sidx = reinterpret_cast<int2*>(base + lay.sidx);     // and endpoints (-1: none)
+  float* sb = reinterpret_cast<float*>(base + lay.body);     // the three body rows
+  int* scs = reinterpret_cast<int*>(base + lay.cs);
+  uint8_t* sdyn = base + lay.dyn;                            // dyn_ab in packed order
 
-  const int w = blockIdx.x;
+  const int w = blockIdx.x * (blockDim.x / tw) + group;
+  if (w >= n_worlds) return;
+
+  const Group g{group + 1, tw};
+  float* P = packed + (size_t)w * kScratchRows * C;
+  const int* cs = color_start + (size_t)w * (mc + 1);
+  const int* pw = perm + (size_t)w * C;
+  const uint8_t* dyn = dyn_ab + (size_t)w * C;
   const size_t bo = (size_t)w * 3 * n;
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) sb[i] = body_in[bo + i];
-  __syncthreads();
-  sweep<kVelocity>(packed + (size_t)w * kScratchRows * C, C,
-                   color_start + (size_t)w * (mc + 1), mc, perm + (size_t)w * C,
-                   dyn_ab + (size_t)w * C, sb, n, sd, sidx);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) body_out[bo + i] = sb[i];
+  const int total = min(cs[mc], C);
+  const int n_tiles = (total + tile - 1) / tile;
+
+  for (int j = 0; j < min(nbuf, n_tiles); ++j)
+    load_tile<kVelocity>(P, C, srows + (size_t)j * kR * tile, j * tile,
+                         min(tile, total - j * tile), tile, tid, tw, aligned);
+  for (int i = tid; i <= mc; i += tw) scs[i] = cs[i];
+  for (int i = tid; i < 3 * n; i += tw) sb[i] = body_in[bo + i];
+  for (int p = tid; p < total; p += tw) sdyn[p] = dyn[pw[p]];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % nbuf;
+    const int t0 = j * tile, t1 = min(t0 + tile, total);
+    const float* T = srows + (size_t)buf * kR * tile;
+    if (aligned) {
+      // this tile's group has landed once at most the newest one (the
+      // next tile's, where one was started) is pending
+      if (nbuf > 1 && j + 1 < n_tiles) cp_async_wait<1>();
+      else cp_async_wait<0>();
+    }
+    g.sync();  // every thread's share of the tile is in place
+    for (int c = 0; c < mc; ++c) {
+      const int c0 = scs[c], c1 = scs[c + 1];
+      const int s0 = max(c0, t0), s1 = min(c1, t1);
+      if (s0 >= s1) continue;  // same for every thread of the world
+      if (c < mc - 1) {
+        for (int p = s0 + tid; p < s1; p += tw) {
+          float d[6];
+          int ia, ib;
+          const StagedRows<kVelocity> R{T, tile, p - t0};
+          if constexpr (kVelocity) velocity_lane(R, P, C, p, sb, n, d, &ia, &ib);
+          else position_lane(R, P, C, p, sb, n, d, &ia, &ib);
+          const uint8_t f = sdyn[p];
+          if (f & 1) add3(sb, n, ia, d);
+          if (f & 2) add3(sb, n, ib, d + 3);
+        }
+        g.sync();
+      } else {
+        // the chunks start at c0, c0 + kChunk, ...: the first one here is
+        // the chunk that holds lane s0
+        for (int ch = c0 + (s0 - c0) / kChunk * kChunk; ch < s1; ch += kChunk) {
+          const int ce = min(ch + kChunk, c1);
+          for (int p = max(ch, s0) + tid; p < min(ce, s1); p += tw) {
+            float d[6];
+            int ia, ib;
+            const StagedRows<kVelocity> R{T, tile, p - t0};
+            if constexpr (kVelocity) velocity_lane(R, P, C, p, sb, n, d, &ia, &ib);
+            else position_lane(R, P, C, p, sb, n, d, &ia, &ib);
+            const uint8_t f = sdyn[p];
+            const int l = p - ch;
+            for (int q = 0; q < 6; ++q) sd[6 * l + q] = d[q];
+            sidx[l] = make_int2((f & 1) ? ia : -1, (f & 2) ? ib : -1);
+          }
+          if (ce <= t1) {  // complete: the rest of a straddling chunk comes with the next tile
+            g.sync();
+            apply_chunk(sb, n, sd, sidx, ce - ch, tid, tw);
+            g.sync();
+          }
+        }
+      }
+    }
+    if (j + nbuf < n_tiles) {
+      g.sync();  // every thread is done with this buffer
+      load_tile<kVelocity>(P, C, srows + (size_t)buf * kR * tile, (j + nbuf) * tile,
+                           min(tile, total - (j + nbuf) * tile), tile, tid, tw, aligned);
+    }
+  }
+  for (int i = tid; i < 3 * n; i += tw) body_out[bo + i] = sb[i];
 }
+
+// ---- K6: impulses and min_sep back to slot order ---------------------------
+//
+// Bound: bytes, 7.0 MB at 256 x tumbler(200), of which 5.2 MB is the zero
+// of the slots that were not solved: 2.1 us, at or below the cost of a
+// launch. The kernel is a gather, not a fill and a scatter: a block
+// inverts perm in shared memory (slot -> packed position or -1; C ints a
+// world), then every thread writes 16 bytes of one aux row, each element
+// exactly once: the packed value (a 4-byte gather, L2-resident) or 0. A
+// world's five rows are spread over gridDim.y blocks, each rebuilding the
+// inverse, as far as it takes to fill the card with a small batch; for
+// small C a block takes several worlds (ops/solve_middle.py
+// `unpack_shape`).
+constexpr int kUnpackMaxWorlds = 8;
 
 __global__ void __launch_bounds__(kThreads)
 unpack_packed_kernel(const float* __restrict__ packed, const int* __restrict__ perm,
                      const int* __restrict__ color_start, float* __restrict__ aux,
-                     int C, int mc) {
-  const int w = blockIdx.x;
-  const float* P = packed + (size_t)w * kScratchRows * C;
-  const int* pw = perm + (size_t)w * C;
-  float* A = aux + (size_t)w * kAuxRows * C;
-  const int total = color_start[(size_t)w * (mc + 1) + mc];
-  for (int i = threadIdx.x; i < kAuxRows * C; i += blockDim.x) A[i] = 0.0f;
+                     int n_worlds, int C, int mc, int wpb, int vec) {
+  extern __shared__ __align__(16) int inv[];   // wpb x C
+  __shared__ int totals[kUnpackMaxWorlds];
+  const int w0 = blockIdx.x * wpb;
+  const int nw = min(wpb, n_worlds - w0);
+  const int tid = threadIdx.x;
+  if (tid < nw) totals[tid] = min(color_start[(size_t)(w0 + tid) * (mc + 1) + mc], C);
+  for (int i = tid; i < nw * C; i += blockDim.x) inv[i] = -1;
   __syncthreads();
-  for (int p = threadIdx.x; p < total; p += blockDim.x) {
-    const int slot = pw[p];
-    for (int r = 0; r < 4; ++r) A[(size_t)r * C + slot] = P[(size_t)(47 + r) * C + p];
-    A[(size_t)4 * C + slot] = P[(size_t)kMinSepRow * C + p];
+  for (int i = tid; i < nw * C; i += blockDim.x) {
+    const int gw = i / C, p = i - gw * C;
+    if (p < totals[gw]) {
+      const int slot = perm[(size_t)w0 * C + i];
+      if ((unsigned)slot < (unsigned)C) inv[gw * C + slot] = p;
+    }
+  }
+  __syncthreads();
+  for (int r = blockIdx.y; r < kAuxRows; r += gridDim.y) {
+    const int row = r < 4 ? 47 + r : kMinSepRow;
+    if (vec) {
+      const int q = C / 4;
+      for (int i = tid; i < nw * q; i += blockDim.x) {
+        const int gw = i / q, s = (i - gw * q) * 4;
+        const int4 iv = *reinterpret_cast<const int4*>(inv + gw * C + s);
+        const float* src = packed + ((size_t)(w0 + gw) * kScratchRows + row) * C;
+        float4 v;
+        v.x = iv.x >= 0 ? src[iv.x] : 0.0f;
+        v.y = iv.y >= 0 ? src[iv.y] : 0.0f;
+        v.z = iv.z >= 0 ? src[iv.z] : 0.0f;
+        v.w = iv.w >= 0 ? src[iv.w] : 0.0f;
+        *reinterpret_cast<float4*>(aux + ((size_t)(w0 + gw) * kAuxRows + r) * C + s) = v;
+      }
+    } else {
+      for (int i = tid; i < nw * C; i += blockDim.x) {
+        const int gw = i / C, s = i - gw * C;
+        const int p = inv[i];
+        aux[((size_t)(w0 + gw) * kAuxRows + r) * C + s] =
+            p >= 0 ? packed[((size_t)(w0 + gw) * kScratchRows + row) * C + p] : 0.0f;
+      }
+    }
   }
 }
+
+// What any launch costs on the card: chip_smoke.py times this beside the
+// kernels, whose bounds can lie below it.
+__global__ void empty_kernel() {}
 
 // Dynamic shared memory above 48 KB is an opt-in per kernel function.
 template <typename Kernel>
@@ -499,15 +784,20 @@ template <bool kVelocity>
 int iter_packed_launch(float* packed, const int* perm, const int* color_start,
                        const uint8_t* dyn_ab, const float* body_in, float* body_out,
                        int n_worlds, int n_bodies, int n_contacts, int max_colors,
-                       void* stream) {
+                       int tw, int wpb, int tile, int nbuf, void* stream) {
   if (n_worlds <= 0) return 0;
-  const size_t smem = (size_t)(3 * n_bodies + 6 * kChunk) * sizeof(float) +
-                      2 * kChunk * sizeof(int);
+  if (tw < 32 || tw % 32 != 0 || wpb < 1 || wpb > 15 || tw * wpb > kThreads ||
+      tile < 32 || tile % 32 != 0 || nbuf < 1)
+    return (int)cudaErrorInvalidValue;
+  const StagedLayout lay(kVelocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors, tile, nbuf);
+  const size_t smem = (size_t)wpb * lay.bytes;
   const cudaError_t e = allow_smem(iter_packed_kernel<kVelocity>, smem);
   if (e != cudaSuccess) return (int)e;
-  iter_packed_kernel<kVelocity><<<n_worlds, kThreads, smem, (cudaStream_t)stream>>>(
-      packed, perm, color_start, dyn_ab, body_in, body_out, n_bodies, n_contacts,
-      max_colors);
+  const int aligned = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  iter_packed_kernel<kVelocity>
+      <<<(n_worlds + wpb - 1) / wpb, tw * wpb, smem, (cudaStream_t)stream>>>(
+          packed, perm, color_start, dyn_ab, body_in, body_out, n_worlds, n_bodies,
+          n_contacts, max_colors, tw, tile, nbuf, aligned);
   return (int)cudaGetLastError();
 }
 
@@ -534,6 +824,11 @@ extern "C" int solve_middle_launch(const float* blob, const int* perm,
   return (int)cudaGetLastError();
 }
 
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 extern "C" int pack_packed_launch(const float* blob, const int* perm,
                                   const int* color_start, float* packed,
                                   int n_worlds, int n_contacts, int max_colors,
@@ -548,25 +843,49 @@ extern "C" int vel_iter_packed_launch(float* packed, const int* perm,
                                       const int* color_start, const uint8_t* dyn_ab,
                                       const float* vel, float* vel_out, int n_worlds,
                                       int n_bodies, int n_contacts, int max_colors,
-                                      void* stream) {
+                                      int threads_per_world, int worlds_per_block,
+                                      int tile, int n_buffers, void* stream) {
   return iter_packed_launch<true>(packed, perm, color_start, dyn_ab, vel, vel_out,
-                                  n_worlds, n_bodies, n_contacts, max_colors, stream);
+                                  n_worlds, n_bodies, n_contacts, max_colors,
+                                  threads_per_world, worlds_per_block, tile, n_buffers,
+                                  stream);
 }
 
 extern "C" int pos_iter_packed_launch(float* packed, const int* perm,
                                       const int* color_start, const uint8_t* dyn_ab,
                                       const float* pos, float* pos_out, int n_worlds,
                                       int n_bodies, int n_contacts, int max_colors,
-                                      void* stream) {
+                                      int threads_per_world, int worlds_per_block,
+                                      int tile, int n_buffers, void* stream) {
   return iter_packed_launch<false>(packed, perm, color_start, dyn_ab, pos, pos_out,
-                                   n_worlds, n_bodies, n_contacts, max_colors, stream);
+                                   n_worlds, n_bodies, n_contacts, max_colors,
+                                   threads_per_world, worlds_per_block, tile, n_buffers,
+                                   stream);
+}
+
+// One world's shared memory in a sweep, as the kernel lays it out (the
+// card-only tests hold ops/solve_middle.py's copy of the sum to it).
+extern "C" int sweep_world_smem_bytes(int velocity, int n_bodies, int n_contacts,
+                                      int max_colors, int tile, int n_buffers) {
+  return StagedLayout(velocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors,
+                      tile, n_buffers).bytes;
 }
 
 extern "C" int unpack_packed_launch(const float* packed, const int* perm,
                                     const int* color_start, float* aux, int n_worlds,
-                                    int n_contacts, int max_colors, void* stream) {
+                                    int n_contacts, int max_colors, int worlds_per_block,
+                                    int grid_y, void* stream) {
   if (n_worlds <= 0) return 0;
-  unpack_packed_kernel<<<n_worlds, kThreads, 0, (cudaStream_t)stream>>>(
-      packed, perm, color_start, aux, n_contacts, max_colors);
+  if (worlds_per_block < 1 || worlds_per_block > kUnpackMaxWorlds || grid_y < 1 ||
+      grid_y > kAuxRows)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)worlds_per_block * n_contacts * sizeof(int);
+  const cudaError_t e = allow_smem(unpack_packed_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(aux) % 16 == 0;
+  const dim3 grid((n_worlds + worlds_per_block - 1) / worlds_per_block, grid_y);
+  unpack_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      packed, perm, color_start, aux, n_worlds, n_contacts, max_colors,
+      worlds_per_block, vec);
   return (int)cudaGetLastError();
 }

@@ -49,6 +49,11 @@ CPU tensors:
 `solve_middle_plain` is the composition of the four plain versions with
 `integrate_positions` between the velocity and the position sweeps.
 
+The sweep kernels stage a world's rows of `packed` in shared memory and
+give a world its own group of threads; `sweep_shape` picks that launch
+shape (threads a world, worlds a block, tile, ring depth) and
+`unpack_shape` the unpack kernel's, from the static shapes alone.
+
 Semantics: within a color the lanes are conflict-free on dynamic bodies,
 so a color is one parallel pass and only dynamic endpoints are written.
 Color MC-1 is the overflow color of the coloring: its lanes may share
@@ -58,6 +63,7 @@ chunk, the Pallas kernel's chunking).
 """
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -74,39 +80,33 @@ MIN_SEP_ROW = 51
 AUX_ROWS = 5
 
 
-def _check(fn, want):
-    """`want` maps an argument name to (tensor, dtype, shape); all must be
-    contiguous and on the first one's device."""
-    first = next(iter(want.values()))[0]
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{fn}: {name} must be {dtype} of shape "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != first.device:
-            raise ValueError(f"{fn}: {name} is on {t.device}, "
-                             f"{next(iter(want))} on {first.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-    if "color_start" in want and want["color_start"][0].shape[-1] < 2:
+def _need(fn, name, t, dtype, shape, device):
+    if t.dtype != dtype or t.shape != shape:
+        raise ValueError(f"{fn}: {name} must be {dtype} of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _need_layout(fn, perm, color_start, dyn_ab, nw, nc, device):
+    _need(fn, "perm", perm, torch.int32, (nw, nc), device)
+    if color_start.dim() != 2 or color_start.shape[1] < 2:
         raise ValueError(f"{fn}: color_start needs max_colors + 1 >= 2 columns")
-
-
-def _layout_specs(perm, color_start, dyn_ab=None):
-    nw, nc = perm.shape
-    want = {"perm": (perm, torch.int32, (nw, nc)),
-            "color_start": (color_start, torch.int32, (nw, color_start.shape[-1]))}
+    _need(fn, "color_start", color_start, torch.int32, (nw, color_start.shape[1]), device)
     if dyn_ab is not None:
-        want["dyn_ab"] = (dyn_ab, torch.uint8, (nw, nc))
-    return want
+        _need(fn, "dyn_ab", dyn_ab, torch.uint8, (nw, nc), device)
 
 
 def _dispatch(fn, first, plain, launch, *args):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    if first.device.type == "cpu":
+    kind = first.device.type
+    if kind == "cuda":
+        return launch(*args)
+    if kind == "cpu":
         return plain(*args)
-    if first.device.type != "cuda":
-        raise ValueError(f"{fn}: no implementation for {first.device}")
-    return launch(*args)
+    raise ValueError(f"{fn}: no implementation for {first.device}")
 
 
 def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
@@ -115,12 +115,12 @@ def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
     kernel for CUDA tensors (see the module docstring)."""
     nw, _, nc = blob.shape
     nb = vel.shape[-1]
-    _check("solve_middle", {
-        "blob": (blob, torch.float32, (nw, BLOB_ROWS, nc)),
-        **_layout_specs(perm, color_start, dyn_ab),
-        "vel": (vel, torch.float32, (nw, 3, nb)),
-        "pos": (pos, torch.float32, (nw, 3, nb)),
-        "movable": (movable, torch.bool, (nw, nb))})
+    dev = blob.device
+    _need("solve_middle", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), dev)
+    _need_layout("solve_middle", perm, color_start, dyn_ab, nw, nc, dev)
+    _need("solve_middle", "vel", vel, torch.float32, (nw, 3, nb), dev)
+    _need("solve_middle", "pos", pos, torch.float32, (nw, 3, nb), dev)
+    _need("solve_middle", "movable", movable, torch.bool, (nw, nb), dev)
     return _dispatch("solve_middle", blob, solve_middle_plain, _launch,
                      blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
                      velocity_iterations, position_iterations)
@@ -128,24 +128,39 @@ def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
 
 solve_middle.launches = 0
 
+# C entry points of csrc/solve_middle.cu: (pointers, ints, a float after
+# the ints); every one ends with the stream and returns a CUDA error code
+_ENTRIES = {"solve_middle_launch": (11, 6, True),
+            "pack_packed_launch": (4, 3, False),
+            "vel_iter_packed_launch": (6, 8, False),
+            "pos_iter_packed_launch": (6, 8, False),
+            "unpack_packed_launch": (4, 5, False)}
 
-def _entry(name, n_pointers, n_ints, with_dt=False):
+
+@functools.cache
+def _entry(name):
+    n_pointers, n_ints, with_dt = _ENTRIES[name]
     fn = getattr(load("solve_middle"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                       + ([ctypes.c_float] if with_dt else []) + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + ([ctypes.c_float] if with_dt else []) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
-def _call(name, first, pointers, ints, dt=None):
+def _call(name, device, pointers, ints, dt=None):
     """Launch one kernel of csrc/solve_middle.cu on PyTorch's current
-    stream; raises when the launch is refused."""
-    fn = _entry(name, len(pointers), len(ints), dt is not None)
-    stream = torch.cuda.current_stream(first.device).cuda_stream
-    with torch.cuda.device(first.device):
-        err = fn(*(t.data_ptr() for t in pointers), *ints,
-                 *(() if dt is None else (float(dt),)), stream)
+    stream of `device`; raises when the launch is refused."""
+    fn = _entry(name)
+    args = [t.data_ptr() for t in pointers]
+    args += ints
+    if dt is not None:
+        args.append(float(dt))
+    args.append(torch._C._cuda_getCurrentRawStream(device.index))
+    if torch._C._cuda_getDevice() == device.index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
@@ -159,7 +174,7 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=blob.device)
     scratch = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
                           device=blob.device)
-    _call("solve_middle_launch", blob,
+    _call("solve_middle_launch", blob.device,
           (blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out,
            aux, scratch),
           (nw, nb, nc, color_start.shape[-1] - 1, velocity_iterations,
@@ -176,8 +191,8 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
 def pack_packed(blob, perm, color_start):
     """Slot-order constraint rows -> the color-major packed table."""
     nw, _, nc = blob.shape
-    _check("pack_packed", {"blob": (blob, torch.float32, (nw, BLOB_ROWS, nc)),
-                           **_layout_specs(perm, color_start)})
+    _need("pack_packed", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), blob.device)
+    _need_layout("pack_packed", perm, color_start, None, nw, nc, blob.device)
     return _dispatch("pack_packed", blob, pack_packed_plain, _launch_pack,
                      blob, perm, color_start)
 
@@ -189,31 +204,101 @@ def _launch_pack(blob, perm, color_start):
     nw, _, nc = blob.shape
     packed = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
                          device=blob.device)
-    _call("pack_packed_launch", blob, (blob, perm, color_start, packed),
+    _call("pack_packed_launch", blob.device, (blob, perm, color_start, packed),
           (nw, nc, color_start.shape[-1] - 1))
     pack_packed.launches += 1
     return packed
 
 
-def _check_iter(fn, packed, perm, color_start, dyn_ab, body, body_name):
-    nw, _, nc = packed.shape
-    _check(fn, {"packed": (packed, torch.float32, (nw, PACKED_ROWS, nc)),
-                **_layout_specs(perm, color_start, dyn_ab),
-                body_name: (body, torch.float32, (nw, 3, body.shape[-1]))})
+class SweepShape(NamedTuple):
+    """How a sweep kernel (K4, K5) lays a batch out on the card."""
+    threads_per_world: int    # a multiple of 32; a world's own barrier width
+    worlds_per_block: int
+    tile: int                 # lanes of the packed table staged at a time
+    n_buffers: int            # tiles in flight: the ring's depth
+    smem_bytes: int           # dynamic shared memory a block
 
 
-def _launch_iter(name, packed, perm, color_start, dyn_ab, body):
+VEL_ROWS, POS_ROWS = 36, 23   # table rows a velocity / a position sweep reads
+SMEM_BLOCK_MAX = 232448       # shared memory a block may take on an H100
+_SMEM_SHARE = SMEM_BLOCK_MAX // 2    # leave room for a second block on the SM
+
+
+def _align16(x):
+    return -(-x // 16) * 16
+
+
+def _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers):
+    """One world's shared memory in a sweep kernel (`StagedLayout` in
+    csrc/solve_middle.cu): the row buffers, the overflow chunk's deltas
+    and endpoints, the body plane, color_start, the dynamic-endpoint flags
+    in packed order."""
+    chunk = min(CK, -(-n_contacts // 32) * 32)
+    return (n_buffers * rows * tile * 4 + 8 * chunk * 4 + _align16(12 * n_bodies)
+            + _align16(4 * (max_colors + 1)) + _align16(n_contacts))
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_shape(n_bodies, n_contacts, max_colors, rows=VEL_ROWS) -> SweepShape:
+    """The launch shape of a sweep, from the static shapes alone (no device
+    read). A tile holds min(CK, C) lanes (smaller tiles split more colors
+    into more passes); a world with more slots than a tile gets a ring of
+    two. A world gets C / 4 threads between one warp and CK: a color holds
+    tens of lanes, but staging and the overflow apply use every thread.
+    A block takes as many worlds (a power of two, at most 8) as fit CK
+    threads and half an SM's shared memory."""
+    tile = min(CK, -(-n_contacts // 32) * 32)
+    n_buffers = 1 if n_contacts <= tile else 2
+    tw = min(CK, max(32, -(-(n_contacts // 4) // 32) * 32))
+    world = _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers)
+    wpb = 1
+    while 2 * wpb <= 8 and 2 * wpb * tw <= CK and 2 * wpb * world <= _SMEM_SHARE:
+        wpb *= 2
+    return SweepShape(tw, wpb, tile, n_buffers, wpb * world)
+
+
+N_SMS = 132                   # streaming multiprocessors of an H100
+
+
+def unpack_shape(n_worlds, n_contacts):
+    """K6's launch shape (worlds a block, blocks a world's five rows are
+    spread over): a block writes 1024 slots of an aux row at 16 bytes a
+    thread, so small worlds share a block (a power of two, at most 8);
+    the rows are spread only as far as two blocks an SM need it, since
+    every block rebuilds the inverse of perm."""
+    wpb = 1
+    while 2 * wpb <= 8 and 2 * wpb * n_contacts <= 4 * CK:
+        wpb *= 2
+    blocks = -(-n_worlds // wpb)
+    return wpb, min(AUX_ROWS, -(-2 * N_SMS // blocks))
+
+
+def _need_iter(fn, packed, perm, color_start, dyn_ab, body, body_name):
     nw, _, nc = packed.shape
+    dev = packed.device
+    _need(fn, "packed", packed, torch.float32, (nw, PACKED_ROWS, nc), dev)
+    _need_layout(fn, perm, color_start, dyn_ab, nw, nc, dev)
+    _need(fn, body_name, body, torch.float32, (nw, 3, body.shape[-1]), dev)
+
+
+def _launch_iter(name, rows, packed, perm, color_start, dyn_ab, body):
+    nw, _, nc = packed.shape
+    nb, mc = body.shape[-1], color_start.shape[-1] - 1
+    shape = sweep_shape(nb, nc, mc, rows)
+    if shape.smem_bytes > SMEM_BLOCK_MAX:
+        raise ValueError(f"{name}: a world of {nb} bodies and {nc} contact slots "
+                         f"needs {shape.smem_bytes} B of shared memory, above "
+                         f"the card's {SMEM_BLOCK_MAX} B a block")
     out = torch.empty_like(body)
-    _call(name, packed, (packed, perm, color_start, dyn_ab, body, out),
-          (nw, body.shape[-1], nc, color_start.shape[-1] - 1))
+    _call(name, packed.device, (packed, perm, color_start, dyn_ab, body, out),
+          (nw, nb, nc, mc, *shape[:4]))
     return out
 
 
 def vel_iter_packed(packed, perm, color_start, dyn_ab, vel):
     """One contact velocity sweep over all colors; `packed`'s impulse rows
     are updated in place."""
-    _check_iter("vel_iter_packed", packed, perm, color_start, dyn_ab, vel, "vel")
+    _need_iter("vel_iter_packed", packed, perm, color_start, dyn_ab, vel, "vel")
     return _dispatch("vel_iter_packed", packed, vel_iter_packed_plain,
                      _launch_vel_iter, packed, perm, color_start, dyn_ab, vel)
 
@@ -222,7 +307,7 @@ vel_iter_packed.launches = 0
 
 
 def _launch_vel_iter(*args):
-    out = _launch_iter("vel_iter_packed_launch", *args)
+    out = _launch_iter("vel_iter_packed_launch", VEL_ROWS, *args)
     vel_iter_packed.launches += 1
     return out
 
@@ -230,7 +315,7 @@ def _launch_vel_iter(*args):
 def pos_iter_packed(packed, perm, color_start, dyn_ab, pos):
     """One contact position sweep over all colors; `packed`'s min_sep row
     is written in place."""
-    _check_iter("pos_iter_packed", packed, perm, color_start, dyn_ab, pos, "pos")
+    _need_iter("pos_iter_packed", packed, perm, color_start, dyn_ab, pos, "pos")
     return _dispatch("pos_iter_packed", packed, pos_iter_packed_plain,
                      _launch_pos_iter, packed, perm, color_start, dyn_ab, pos)
 
@@ -239,7 +324,7 @@ pos_iter_packed.launches = 0
 
 
 def _launch_pos_iter(*args):
-    out = _launch_iter("pos_iter_packed_launch", *args)
+    out = _launch_iter("pos_iter_packed_launch", POS_ROWS, *args)
     pos_iter_packed.launches += 1
     return out
 
@@ -247,8 +332,9 @@ def _launch_pos_iter(*args):
 def unpack_packed(packed, perm, color_start):
     """Impulses and min_sep back to slot order, 0 where unsolved."""
     nw, _, nc = packed.shape
-    _check("unpack_packed", {"packed": (packed, torch.float32, (nw, PACKED_ROWS, nc)),
-                             **_layout_specs(perm, color_start)})
+    _need("unpack_packed", "packed", packed, torch.float32, (nw, PACKED_ROWS, nc),
+          packed.device)
+    _need_layout("unpack_packed", perm, color_start, None, nw, nc, packed.device)
     return _dispatch("unpack_packed", packed, unpack_packed_plain,
                      _launch_unpack, packed, perm, color_start)
 
@@ -259,8 +345,8 @@ unpack_packed.launches = 0
 def _launch_unpack(packed, perm, color_start):
     nw, _, nc = packed.shape
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=packed.device)
-    _call("unpack_packed_launch", packed, (packed, perm, color_start, aux),
-          (nw, nc, color_start.shape[-1] - 1))
+    _call("unpack_packed_launch", packed.device, (packed, perm, color_start, aux),
+          (nw, nc, color_start.shape[-1] - 1, *unpack_shape(nw, nc)))
     unpack_packed.launches += 1
     return aux
 

@@ -10,9 +10,10 @@ on any failure:
   1. card and build: the `nvidia-smi` card line, each kernel's build time,
      registers and spills;
   2. the solve-middle kernel (K1) against its plain PyTorch version on
-     inputs captured from the port's own step (64 x pyramid(10) and
-     16 x pyramid(44) after 30 steps, and 64 x pyramid(10) recolored with
-     max_colors=3 so the overflow color's Jacobi path runs): atol 1e-5 on
+     inputs captured from the port's own step (64 x pyramid(10) after 30
+     steps, 16 x pyramid(44) after 60, when 1230 contacts a world have
+     formed, and 64 x pyramid(10) recolored with max_colors=3 so the
+     overflow color's Jacobi path runs): atol 1e-5 on
      positions, 1e-4 on velocities and impulses, equal convergence
      predicate;
   3. the time-of-impact kernel (K2) against its plain version on lanes
@@ -37,15 +38,25 @@ on any failure:
      versions on the inputs recorded as in phase 4;
   7. sleep: 64 x pyramid(10) until every body sleeps (at most 300 steps),
      then one step that must take the all-asleep skip;
-  8. each kernel's time per call against its plain version's (CUDA
-     events, after warm-up) on the main path's recorded inputs, and its
-     bound: the bytes that call must move (K1: the solved lanes' rows;
-     K2: the active lanes' rows and each proxy's own vertices) over the
-     HBM rate, or its f32 operations over the f32 peak, the larger;
+  8. each kernel's times per call on the main path's recorded inputs,
+     read apart: on the device (20 launches captured in a CUDA graph and
+     replayed between two events, inputs warm in the L2 cache as far as
+     they fit; `torch.profiler`'s kernel durations beside it), the
+     wrapper's time on the host (a host clock around 20 un-synchronized
+     calls), and events around eager calls (the larger of the two); the
+     same for an empty kernel, the launch floor; the plain version's time
+     (events); and the bound: the bytes that call must move (K1: the
+     solved lanes' rows; K2: the active lanes' rows and each proxy's own
+     vertices) over the HBM rate, or its f32 operations over the f32
+     peak, the larger;
   9. the sandwich (K3 pack, K4 velocity sweep, K5 position sweep, K6
-     unpack) against K1 on a joint-free batch: on phase 2's captured
-     64 x pyramid(10) inputs K3 -> 8 x K4 -> integrate_positions ->
-     3 x K5 -> K6 gives K1's three outputs (same tolerance as phase 2);
+     unpack) against K1 on joint-free batches: on phase 2's captured
+     inputs K3 -> 8 x K4 -> integrate_positions -> 3 x K5 -> K6 gives
+     K1's three outputs, to the bit on 64 x pyramid(10) and on
+     16 x pyramid(44) (whose worlds outgrow K4's shared-memory buffers,
+     so its ring turns) and within phase 2's tolerance on the
+     max_colors=3 inputs (the overflow chunk's parallel apply); the way
+     K4 took each case is printed;
  10. joint worlds, the sandwich's main path: 256 x tumbler(200) and
      512 x chain_links(30) for 120 and 180 steps (the chain's tip reaches
      the ground at step 134), counting K3-K6 launches
@@ -61,8 +72,9 @@ on any failure:
  11. the whole step of a joint world through the kernels vs through the
      plain versions, 32 x tumbler(200) for 20 steps (c, a to 2e-5, v and
      the joint impulses to 1e-4, awake equal);
- 12. K3-K6: time per call against the plain versions on the tumbler's
-     recorded inputs, and each one's bound (the solved lanes' rows).
+ 12. K3-K6: the times of phase 8 on the tumbler's recorded inputs, each
+     one's bound (the solved lanes' rows) and, for K3 and K6, the device
+     time of the PyTorch calls that compute the same function.
 
 The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
@@ -101,6 +113,7 @@ SANDWICH_NAMES = ("pack_packed", "vel_iter_packed", "pos_iter_packed", "unpack_p
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+L2_BYTES = 50e6
 # f32 operations per unit of work, counted from the kernels' source (sinf
 # and cosf as 20 operations each): K1 per solved lane per velocity and per
 # position iteration; K2 per trip of each of its four loops
@@ -315,6 +328,8 @@ def fast_box_worlds(n, device, seed=0):
 
 
 def time_call(fn, args, reps=20):
+    """ms per call between two CUDA events around `reps` eager calls: the
+    device's time or the host's launch rate, whichever is larger."""
     import torch
     for _ in range(2):
         fn(*args)
@@ -327,6 +342,101 @@ def time_call(fn, args, reps=20):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_time(fn, args, reps=20, replays=5):
+    """ms per call on the device alone: `reps` calls captured once in a
+    CUDA graph (a replay runs no Python and no wrapper) and replayed
+    between two events. The same inputs every time, so they stay in the
+    L2 cache as far as they fit."""
+    import torch
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def host_time(fn, args, reps=20):
+    """ms of host time per un-synchronized call: what a launch-bound step
+    pays for the call, whatever the kernel takes."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / reps
+
+
+def profiler_time(fn, args, reps=20):
+    """ms per call summed over the kernels' own durations as
+    `torch.profiler` traces them, or None when it traces no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return 1e-3 * sum(spans) / reps if spans else None
+
+
+def measure(fn, args, profiler=True):
+    """One kernel's times per call through its wrapper: `ms` on the device
+    with the launches back to back (graph replay), `profiler_ms` (the
+    kernels' own durations in eager calls, which the host launches with
+    gaps between them), `host_ms` (the wrapper on the host) and
+    `wrapper_ms` (events around eager calls: the larger of the device's
+    time and the host's launch rate)."""
+    return dict(wrapper_ms=time_call(fn, args), ms=device_time(fn, args),
+                host_ms=host_time(fn, args),
+                profiler_ms=profiler_time(fn, args) if profiler else None)
+
+
+def show(m, n_bytes=0):
+    """`n_bytes`: what one call touches; the repeats find it in the L2
+    cache when it fits, whatever the step's caller would find."""
+    prof = m["profiler_ms"]
+    warm = ("repeats warm" if n_bytes <= L2_BYTES else "repeats partly cold") + \
+        f": {n_bytes / 1e6:.1f} MB touched, {L2_BYTES / 1e6:.0f} MB L2"
+    return (f"device {m['ms']:.4f} ms (graph replay, back to back; {warm}), "
+            f"kernel alone in eager calls (profiler) "
+            f"{'not measured' if prof is None else f'{prof:.4f} ms'}, wrapper on the host "
+            f"{m['host_ms']:.4f} ms, events around eager calls {m['wrapper_ms']:.4f} ms")
+
+
+def launch_floor():
+    """The times of an empty kernel (one warp, no argument read), launched
+    as the port's kernels are: what any launch costs on this card."""
+    import ctypes
+    import torch
+    from box2d_mt_tpu_torch import cuda_build
+    fn = cuda_build.load("solve_middle").empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    return measure(launch, ())
 
 
 def bound(n_bytes, ops):
@@ -455,9 +565,27 @@ def compare_sandwich(step, label, phase=10):
     return err, first
 
 
-def sandwich_vs_k1(args, label):
+def sweep_path(args):
+    """Which way K4 takes these inputs: its launch shape, whether a world's
+    lanes outgrow the shared-memory buffers (the ring turns), and how
+    many chunks the overflow color has."""
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    blob, perm, cs, _, vel = args[:5]
+    shape = sm.sweep_shape(vel.shape[-1], perm.shape[-1], cs.shape[-1] - 1)
+    tiles = -(-int(cs[:, -1].max()) // shape.tile)
+    overflow = int((cs[:, -1] - cs[:, -2]).max())
+    staging = (f"the ring turns ({tiles} tiles a world through {shape.n_buffers} buffers)"
+               if tiles > shape.n_buffers else f"whole worlds staged at entry ({tiles} tiles)")
+    return (f"{shape.threads_per_world} threads a world, {shape.worlds_per_block} worlds "
+            f"a block, tile {shape.tile}, {staging}, overflow color {overflow} lanes "
+            f"in {-(-overflow // sm.CK)} chunks, K6 (worlds a block, blocks a world) "
+            f"{sm.unpack_shape(*perm.shape)}"), tiles > shape.n_buffers, overflow
+
+
+def sandwich_vs_k1(args, label, exact):
     """K3 -> vi x K4 -> integrate_positions -> pi x K5 -> K6 against K1 on
-    the inputs of a joint-free batch; returns the max abs error."""
+    the inputs of a joint-free batch; returns the max abs error. Both
+    apply an overflow chunk in lane order, so `exact` asks for 0."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     from box2d_mt_tpu_torch.ops.integrate import integrate_positions
@@ -477,9 +605,11 @@ def sandwich_vs_k1(args, label):
     err = {"pos": (pos - k_pos).abs().max().item(), "vel": (vel - k_vel).abs().max().item(),
            "aux": (aux - k_aux).abs().max().item()}
     print(f"phase 9 sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
-          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}")
+          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; {sweep_path(args)[0]}")
     if err["pos"] > 1e-5 or err["vel"] > 1e-4 or err["aux"] > 1e-4:
         raise AssertionError(f"{label}: the sandwich disagrees with K1: {err}")
+    if exact and max(err.values()) != 0.0:
+        raise AssertionError(f"{label}: the sandwich must equal K1 to the bit: {err}")
     return max(err.values())
 
 
@@ -591,6 +721,9 @@ def main() -> int:
     print(f"card: {card}  (torch {torch.__version__}, cuda {torch.version.cuda})")
     t_start = time.perf_counter()
 
+    def lap(phase):
+        print(f"  [phase {phase} done at {time.perf_counter() - t_start:.1f} s]")
+
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -602,19 +735,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
 
+    lap(1)
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
     args10, _ = capture_middle(s10)
     args_ovf, overflow = capture_middle(s10, max_colors=3)
     if overflow == 0:
         raise AssertionError("max_colors=3 did not overflow the coloring")
-    s44, _ = roll(batch(44, 16, dev), 30)
+    s44, _ = roll(batch(44, 16, dev), 60)
     args44, _ = capture_middle(s44)
     err_k1 = max(compare_middle(args10, "64 x pyramid(10)"),
                  compare_middle(args_ovf, f"64 x pyramid(10), max_colors=3, "
                                           f"{overflow} overflow lanes/world"),
                  compare_middle(args44, "16 x pyramid(44)"))
 
+    lap(2)
     # ---- 3. K2 vs plain on captured, golden and inactive lanes
     lanes_a = capture_toi(batch(10, 64, dev), 30)
     lanes_b = capture_toi(fast_box_worlds(4096, dev), 1)
@@ -630,6 +765,7 @@ def main() -> int:
     if not (bool((ks == 0).all()) and bool((kt == 1.0).all())):
         raise AssertionError("inactive lanes must return TOI_UNKNOWN and t = t_max")
 
+    lap(3)
     # ---- 4. the main path
     def healthy(states, ev):
         if int(ev.color_overflow.max()) != 0 or int(ev.toi_overflow.max()) != 0:
@@ -680,6 +816,7 @@ def main() -> int:
     err_k2 = max(err_k2, compare_toi(lanes_main, "512 x pyramid(10), main path, "
                                                  "busiest round", min_touching=1, phase=4))
 
+    lap(4)
     # ---- 5. kernel path vs plain path, whole step through the impact
     ker, _ = roll(batch(10, 64, dev), 20)
     pln, _ = roll(batch(10, 64, dev), 20, middle=sm.solve_middle_plain,
@@ -694,6 +831,7 @@ def main() -> int:
     if d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or not (awake_eq and toi_eq):
         raise AssertionError(f"kernel path and plain path disagree: {d}")
 
+    lap(5)
     # ---- 6. large worlds
     big = batch(44, 128, dev)
     roll(batch(44, 8, dev), 1)
@@ -721,6 +859,7 @@ def main() -> int:
                                      "round", min_touching=1, phase=6))
     del rec, big
 
+    lap(6)
     # ---- 7. sleep
     states = batch(10, 64, dev)
     slept_at = None
@@ -740,20 +879,22 @@ def main() -> int:
     if not skipped:
         raise AssertionError("the all-asleep skip was not taken")
 
+    lap(7)
     # ---- 8. time per call and bound, at the main path's shapes
-    times = {}
-    for label, args in (("512 x pyramid(10)", args_main), ("64 x pyramid(10)", args10),
-                        ("16 x pyramid(44)", args44)):
-        times[label] = (time_call(sm.solve_middle, args),
-                        time_call(sm.solve_middle_plain, args, reps=3))
-        print(f"phase 8 solve_middle [{label}]: kernel {times[label][0]:.4f} ms, "
-              f"plain {times[label][1]:.4f} ms per call")
-    k1_ms, k1_plain = times["512 x pyramid(10)"]
+    floor = launch_floor()
+    print(f"phase 8 launch floor (an empty kernel of one warp): {show(floor)}")
+    k1_m = measure(sm.solve_middle, args_main)
+    k1_plain = time_call(sm.solve_middle_plain, args_main, reps=3)
+    print(f"phase 8 solve_middle [512 x pyramid(10)]: {show(k1_m, k1_bytes(args_main))}; "
+          f"plain {k1_plain:.4f} ms per call")
+    for label, args in (("64 x pyramid(10)", args10), ("16 x pyramid(44)", args44)):
+        print(f"phase 8 solve_middle [{label}]: "
+              f"{show(measure(sm.solve_middle, args, profiler=False), k1_bytes(args))}")
     solved = int(args_main[2][:, -1].sum())
     k1_bound = bound(k1_bytes(args_main),
                      solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
                                + MAIN["position_iterations"] * K1_OPS_POS))
-    k2_ms = time_call(ktoi.time_of_impact_lanes, lanes_main)
+    k2_m = measure(ktoi.time_of_impact_lanes, lanes_main)
     k2_plain = time_call(ktoi.time_of_impact_lanes_plain, lanes_main, reps=3)
     stats = {}
     state, t = ktoi.time_of_impact_lanes_plain(*lanes_main, stats=stats)
@@ -763,16 +904,26 @@ def main() -> int:
     n_lanes = lanes_main[-1].shape[0]
     print(f"phase 8 toi [512 x pyramid(10), main path's busiest round, {n_lanes} lanes, "
           f"{int(lanes_main[-1].sum())} active, {int((state == 3).sum())} touching]: "
-          f"kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms per call; loop trips {trips}")
+          f"{show(k2_m, k2_bytes(lanes_main))}; plain {k2_plain:.4f} ms per call; "
+          f"loop trips {trips}")
     print(f"phase 8 bounds: solve_middle {k1_bound[0]:.5f} ms ({k1_bound[1]}: "
-          f"{k1_bytes(args_main)} B, {solved} solved lanes; kernel at "
-          f"{100 * k1_bound[0] / k1_ms:.2f}% of it), toi {k2_bound[0]:.5f} ms "
-          f"({k2_bound[1]}: {k2_bytes(lanes_main)} B; kernel at "
-          f"{100 * k2_bound[0] / k2_ms:.2f}% of it)")
+          f"{k1_bytes(args_main)} B, {solved} solved lanes; device time at "
+          f"{100 * k1_bound[0] / k1_m['ms']:.2f}% of it), toi {k2_bound[0]:.5f} ms "
+          f"({k2_bound[1]}: {k2_bytes(lanes_main)} B; device time at "
+          f"{100 * k2_bound[0] / k2_m['ms']:.2f}% of it)")
 
+    lap(8)
     # ---- 9. the sandwich against K1 on a joint-free batch
-    err_sw_k1 = sandwich_vs_k1(args10, "64 x pyramid(10)")
+    if not sweep_path(args44)[1]:
+        raise AssertionError("16 x pyramid(44) does not turn K4's ring")
+    if sweep_path(args_ovf)[2] <= 0:
+        raise AssertionError("the max_colors=3 inputs have no overflow lane")
+    err_sw_k1 = max(
+        sandwich_vs_k1(args10, "64 x pyramid(10)", exact=True),
+        sandwich_vs_k1(args44, "16 x pyramid(44)", exact=True),
+        sandwich_vs_k1(args_ovf, "64 x pyramid(10), max_colors=3", exact=False))
 
+    lap(9)
     # ---- 10. joint worlds: the sandwich's main path
     def boxes_inside(states):
         b = states.bodies                            # slots 0, 1: ground, container
@@ -797,6 +948,7 @@ def main() -> int:
     del rec_c
     err_sw = {k: max(v, err_c[k], err_sw_k1) for k, v in err_sw.items()}
 
+    lap(10)
     # ---- 11. kernel path vs plain path on a joint world
     ker, _ = roll(joint_batch("tumbler", 200, 32, dev), 20)
     pln, _ = roll(joint_batch("tumbler", 200, 32, dev), 20, middle=sm.solve_middle_plain,
@@ -815,6 +967,7 @@ def main() -> int:
             or not awake_eq):
         raise AssertionError(f"joint world: kernel path and plain path disagree: {d}")
 
+    lap(11)
     # ---- 12. K3-K6: time per call and bound at the tumbler's busiest step
     sw_bytes, solved_t = sandwich_bytes(first_t)
     sw_ops = {"pack_packed": 0, "vel_iter_packed": solved_t * K1_OPS_VEL,
@@ -824,27 +977,32 @@ def main() -> int:
     for name, fn, plain in zip(SANDWICH_NAMES, sm.SANDWICH, sm.SANDWICH_PLAIN):
         # a sweep updates its table in place: repeated calls move the
         # impulses on, which changes no trip count and no byte moved
-        sw[name] = (time_call(fn, first_t[name]), time_call(plain, first_t[name], reps=3),
+        sw[name] = (measure(fn, first_t[name]), time_call(plain, first_t[name], reps=3),
                     bound(sw_bytes[name], sw_ops[name]),
-                    time_call(*lib[name]) if name in lib else None)
-        ms, plain_ms, bnd, lib_ms = sw[name]
-        print(f"phase 12 {name} [256 x tumbler(200), {solved_t} solved lanes]: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call; bound {bnd[0]:.5f} ms "
-              f"({bnd[1]}: {sw_bytes[name]} B; kernel at {100 * bnd[0] / ms:.2f}% of it); "
-              f"library call {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+                    device_time(*lib[name]) if name in lib else None)
+        m, plain_ms, bnd, lib_ms = sw[name]
+        print(f"phase 12 {name} [256 x tumbler(200), {solved_t} solved lanes]: "
+              f"{show(m, sw_bytes[name])}; "
+              f"plain {plain_ms:.4f} ms per call; bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}: {sw_bytes[name]} B; device time at {100 * bnd[0] / m['ms']:.2f}% "
+              f"of it, {m['ms'] / floor['ms']:.2f} x the launch floor); library call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms on the device'}")
+    lap(12)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     record = []
-    for name, err, ms, plain, bnd in (("solve_middle", err_k1, k1_ms, k1_plain, k1_bound),
-                                      ("toi", err_k2, k2_ms, k2_plain, k2_bound)):
+    for name, err, m, plain, bnd in (("solve_middle", err_k1, k1_m, k1_plain, k1_bound),
+                                     ("toi", err_k2, k2_m, k2_plain, k2_bound)):
         record.append(dict(name=name, **KERNELS[name], launches=launches[name],
-                           max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                           bound_by=bnd[1], library_ms=None))
+                           max_abs_err=err, ms=m["ms"], host_ms=m["host_ms"],
+                           plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                           library_ms=None))
     for name in SANDWICH_NAMES:
-        ms, plain_ms, bnd, lib_ms = sw[name]
+        m, plain_ms, bnd, lib_ms = sw[name]
         record.append(dict(name=name, **KERNELS[name], launches=launches_t[name],
-                           max_abs_err=err_sw[name], ms=ms, plain_ms=plain_ms,
-                           bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms))
+                           max_abs_err=err_sw[name], ms=m["ms"], host_ms=m["host_ms"],
+                           plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                           library_ms=lib_ms))
     # the tumbler has no TOI candidate (every pair is dynamic-dynamic), so
     # of the joint scenes only the chain runs K2 as well
     if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:

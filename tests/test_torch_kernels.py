@@ -9,8 +9,14 @@ time-of-impact kernel gets the lanes of the step in which a pyramid's
 bottom row reaches the ground, and of fast boxes thrown at a thin wall.
 The four sandwich kernels get the inputs of one step of 8 x tumbler(40)
 (a joint world, after the boxes have landed), recorded through the
-`sandwich=` hook."""
+`sandwich=` hook, and the solve middle's inputs of joint-free pyramids at
+every launch shape of the sweeps and the unpack: 128 contact slots
+(several worlds a block, the last block partly filled), 1024, 4096 (more
+lanes than the shared-memory buffers hold, so the ring turns), an
+overflow color of several chunks, a world without a solved lane, and a
+slot count that is no multiple of 4 (rows not 16-byte aligned)."""
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -20,6 +26,7 @@ from box2d_mt_tpu_torch import settings, shapes
 from box2d_mt_tpu_torch.models import scenes
 from box2d_mt_tpu_torch.ops import solve_middle as sm
 from box2d_mt_tpu_torch.ops import toi as ktoi
+from box2d_mt_tpu_torch.ops.integrate import integrate_positions
 from box2d_mt_tpu_torch.state import replicate
 from box2d_mt_tpu_torch.world import WorldBuilder, step_batched
 
@@ -190,3 +197,124 @@ def test_sandwich_kernel_matches_plain(tumbler_calls, name):
             assert torch.equal(torch.where(used, k_args[0], 0.0),
                                torch.where(used, p_args[0], 0.0))
             assert not torch.equal(k_args[0], args[0])   # updated in place
+
+
+# name: (pyramid rows, worlds, steps, max_colors, variant); the boxes land
+# row by row: pyramid(44) has 373 contacts after 30 steps, 1230 after 60
+SHAPE_CASES = {
+    "c128": (7, 6, 30, 16, None),
+    "c1024": (22, 3, 30, 16, None),
+    "c4096_ring": (44, 2, 60, 16, None),
+    "c4096_overflow_chunks": (44, 2, 60, 3, None),
+    "c128_empty_world": (7, 6, 30, 16, "empty_world"),
+    "c130_unaligned": (7, 6, 30, 16, "unaligned"),
+    "c258_unaligned_overflow": (10, 3, 30, 3, "unaligned"),
+}
+
+
+@pytest.fixture(scope="module", params=list(SHAPE_CASES))
+def middle_args(request):
+    """The solve middle's arguments of one step of a joint-free pyramid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    rows, n_worlds, n_steps, max_colors, variant = SHAPE_CASES[request.param]
+    states = replicate(scenes.pyramid(rows, device="cuda"), n_worlds)
+    got = {}
+
+    def capture(*args):
+        got["args"] = args
+        return sm.solve_middle(*args)
+
+    for _ in range(n_steps):
+        states, _ = step_batched(states, DT, continuous=False, max_colors=max_colors,
+                                 middle=capture)
+    blob, perm, color_start, dyn_ab, *rest = got["args"]
+    if variant == "empty_world":
+        color_start = color_start.clone()
+        color_start[1] = 0
+    if variant == "unaligned":
+        pad = lambda t: torch.nn.functional.pad(t, (0, 2)).contiguous()
+        blob, perm, dyn_ab = pad(blob), pad(perm), pad(dyn_ab)
+    return request.param, (blob, perm, color_start, dyn_ab, *rest)
+
+
+def _sandwich(blob, perm, color_start, dyn_ab, vel, pos, movable, dt, vi, pi):
+    table = sm.pack_packed(blob, perm, color_start)
+    for _ in range(vi):
+        vel = sm.vel_iter_packed(table, perm, color_start, dyn_ab, vel)
+    c, a, v, w = integrate_positions(pos[:, 0:2].transpose(1, 2), pos[:, 2],
+                                     vel[:, 0:2].transpose(1, 2), vel[:, 2], dt, movable)
+    vel = torch.stack([v[..., 0], v[..., 1], w], 1).contiguous()
+    pos = torch.stack([c[..., 0], c[..., 1], a], 1).contiguous()
+    for _ in range(pi):
+        pos = sm.pos_iter_packed(table, perm, color_start, dyn_ab, pos)
+    return vel, pos, sm.unpack_packed(table, perm, color_start)
+
+
+@pytest.mark.gpu
+def test_sandwich_kernels_equal_solve_middle_kernel(middle_args):
+    """K3 -> 8 x K4 -> integrate -> 3 x K5 -> K6 is K1 to the bit at every
+    launch shape: both apply an overflow chunk's deltas in lane order."""
+    name, args = middle_args
+    blob, perm, color_start = args[:3]
+    nc, nb = blob.shape[2], args[4].shape[2]
+    lanes = color_start[:, -1]
+    shape = sm.sweep_shape(nb, nc, color_start.shape[1] - 1)
+    assert int(lanes.sum()) > 20
+    if name.startswith("c128"):
+        assert shape.worlds_per_block > 1 and blob.shape[0] % shape.worlds_per_block
+        assert sm.unpack_shape(blob.shape[0], nc)[0] > 1
+    if name == "c128_empty_world":
+        assert int(lanes[1]) == 0
+    if name.startswith("c4096"):
+        assert int(lanes.max()) > shape.tile * shape.n_buffers      # the ring turns
+    if "overflow" in name:
+        overflow = int((color_start[:, -1] - color_start[:, -2]).max())
+        assert overflow > (sm.CK if name.startswith("c4096") else 1)
+    want = sm.solve_middle(*args)
+    got = _sandwich(*args)
+    torch.cuda.synchronize()
+    for label, x, y in zip(("vel", "pos", "aux"), got, want):
+        assert torch.equal(x, y), label
+    assert float(want[2][:, :4].abs().max()) > 0.01
+
+
+@pytest.mark.gpu
+def test_sweep_and_unpack_kernels_match_plain(middle_args):
+    """K4 and K6 alone against their plain versions: K6 moves values, so to
+    the bit; K4 to the bit except in an overflow color, whose plain
+    scatter sum is unordered on a card (atol 1e-4 on velocities)."""
+    name, args = middle_args
+    blob, perm, color_start, dyn_ab, vel = args[:5]
+    table = sm.pack_packed_plain(blob, perm, color_start)
+    for _ in range(2):
+        k_table, p_table = table.clone(), table.clone()
+        k_vel = sm.vel_iter_packed(k_table, perm, color_start, dyn_ab, vel)
+        p_vel = sm.vel_iter_packed_plain(p_table, perm, color_start, dyn_ab, vel)
+        torch.cuda.synchronize()
+        if "overflow" in name:
+            torch.testing.assert_close(k_vel, p_vel, rtol=0, atol=1e-4)
+            torch.testing.assert_close(k_table, p_table, rtol=0, atol=1e-4)
+        else:
+            assert torch.equal(k_vel, p_vel) and torch.equal(k_table, p_table)
+        assert not torch.equal(k_table, table)               # updated in place
+        assert torch.equal(sm.unpack_packed(k_table, perm, color_start),
+                           sm.unpack_packed_plain(k_table, perm, color_start))
+        table, vel = k_table, k_vel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bodies,n_contacts", [(32, 128), (64, 258), (256, 1024),
+                                                 (1024, 4096)])
+def test_sweep_shared_memory_matches_the_kernels_layout(n_bodies, n_contacts):
+    """`sweep_shape` budgets a block's shared memory with its own copy of
+    the kernel's layout sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built only on a card")
+    from box2d_mt_tpu_torch.cuda_build import load
+    fn = load("solve_middle").sweep_world_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    for velocity, rows in ((1, sm.VEL_ROWS), (0, sm.POS_ROWS)):
+        shape = sm.sweep_shape(n_bodies, n_contacts, 16, rows)
+        world = fn(velocity, n_bodies, n_contacts, 16, shape.tile, shape.n_buffers)
+        assert shape.smem_bytes == shape.worlds_per_block * world

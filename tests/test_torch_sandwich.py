@@ -9,6 +9,9 @@
     run in interpret mode on the same small input (2 worlds), compared
     after unpack in slot order, since the packed layouts differ
     (tolerance: 1e-5 positions, 1e-4 velocities and impulses);
+  * the launch shapes the host picks for the sweep kernels (threads a
+    world, worlds a block, tile, ring depth, shared memory) and for the
+    unpack kernel, from the static shapes of the scenes the port runs;
   * the whole step of ONE scene that holds all four ported joint types
     and boxes landing on an edge ground, built with both packages'
     builders, 2 worlds, 40 steps with continuous collision on, against the
@@ -153,6 +156,42 @@ def test_plain_sandwich_matches_pallas_interpret():
     slop = -3.0 * tsettings.LINEAR_SLOP
     np.testing.assert_array_equal(taux[:, 4] >= slop, jaux[:, 4] >= slop)
     assert np.abs(jaux[:, :4]).max() > 0.1 and (jaux[:, 5:] == 0).all()
+
+
+@pytest.mark.parametrize("n_bodies,n_contacts,rows,want", [
+    (32, 128, sm.VEL_ROWS, (32, 4, 128, 1)),       # chain_links(30)
+    (64, 256, sm.VEL_ROWS, (64, 2, 256, 1)),       # pyramid(10)
+    (64, 258, sm.VEL_ROWS, (64, 1, 256, 2)),       # a slot count off the tiers
+    (256, 1024, sm.VEL_ROWS, (256, 1, 256, 2)),    # tumbler(200)
+    (256, 1024, sm.POS_ROWS, (256, 1, 256, 2)),
+    (1024, 4096, sm.VEL_ROWS, (256, 1, 256, 2)),   # pyramid(44)
+], ids=["chain", "pyramid10", "c258", "tumbler_vel", "tumbler_pos", "pyramid44"])
+def test_sweep_shape_from_static_shapes(n_bodies, n_contacts, rows, want):
+    """What the sweep kernels require of their launch shape, and the shape
+    each scene of the port gets."""
+    shape = sm.sweep_shape(n_bodies, n_contacts, 16, rows)
+    tw, wpb, tile, n_buffers, smem = shape
+    assert (tw, wpb, tile, n_buffers) == want
+    assert tw % 32 == 0 and 32 <= tw and tw * wpb <= sm.CK
+    assert tile % 32 == 0 and tile >= min(sm.CK, n_contacts)   # a chunk fits a tile
+    assert n_buffers * tile >= min(n_contacts, 2 * tile)
+    world = sm._sweep_world_bytes(rows, n_bodies, n_contacts, 16, tile, n_buffers)
+    assert smem == wpb * world and world % 16 == 0
+    assert world >= 4 * (n_buffers * rows * tile + 3 * n_bodies) + n_contacts
+    assert smem <= sm.SMEM_BLOCK_MAX
+    if wpb > 1:
+        assert 2 * smem <= sm.SMEM_BLOCK_MAX       # a second block fits the SM
+
+
+def test_unpack_shape_from_static_shapes():
+    """Worlds a block by slot count; a world's five rows are spread over
+    blocks only while the batch leaves SMs idle."""
+    got = [sm.unpack_shape(4096, c)[0] for c in (64, 128, 130, 256, 512, 1024, 4096)]
+    assert got == [8, 8, 4, 4, 2, 1, 1]
+    assert sm.unpack_shape(256, 1024) == (1, 2)        # 256 x tumbler(200)
+    assert sm.unpack_shape(512, 128) == (8, 5)         # 512 x chain_links(30)
+    assert sm.unpack_shape(16, 4096) == (1, 5)
+    assert sm.unpack_shape(4096, 256) == (4, 1)
 
 
 def _mixed_scene(world, shapes, settings, **freeze_kw):
