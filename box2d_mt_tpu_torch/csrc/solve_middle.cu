@@ -1,7 +1,10 @@
 // Contact solve middle for a batch of worlds: the whole middle as one
-// kernel, one thread block per world (K1, joint-free worlds) and, further
-// down, the same work as four kernels around the joint passes (K3-K6, "the
-// sandwich"; each has its own header). This header is K1's.
+// kernel (K1, joint-free worlds) and, further down, the same work as four
+// kernels around the joint passes (K3-K6, "the sandwich"). K1, K4 and K5
+// run one implementation of a sweep (`sweep_span` over rows staged in
+// shared memory), so K1 and the sandwich agree to the bit.
+//
+// ---- K1: solve_middle_kernel ------------------------------------------------
 //
 // K1 replaces the TPU kernel box2d_mt_tpu/ops/pallas_solve.py `_kernel` /
 // `solve_middle_pallas` (:273-349): pack the slot-order constraint rows into
@@ -17,30 +20,44 @@
 // (color_start[:, -1] a world), the body planes in and out, and the
 // (W, 5, C) aux out. At 512 x pyramid(10) (C = 256 contact slots, 100
 // solved a world, N = 64 bodies) that is 15.0 MB: 4.47 us at 3.35 TB/s,
-// against ~1 us for its flops (about 130 per solved lane per velocity
-// iteration and 260 per position iteration, at 67 TFLOP/s in f32).
-// chip_smoke.py computes it from each run's inputs and holds the kernel's
-// time on the device (a replayed CUDA graph of launches, no wrapper in it)
-// against it. No single PyTorch call computes the same function.
+// against ~1 us for its flops. chip_smoke.py computes it from each run's
+// inputs and holds the kernel's time on the device against it.
 //
-// What holds it back on an H100: not flops (a lane is ~200 flops) but latency —
-// every color pass ends in a block barrier, so a sweep costs about
-// (colors x barrier + one dependent chain of shared-memory reads) per
-// world, and worlds only overlap each other. The design keeps the body
-// state (v, w, c, a, movable: 6 floats + 1 byte per body, 25 KB at 1024
-// bodies, plus 8 KB for one overflow chunk) in shared memory so each pass
-// reads and writes bodies there, and streams the packed constraint rows
-// from global memory (coalesced: lane p of a pass reads column p). Other
-// worlds' blocks on the same SM (register use allows two blocks of 256
-// threads) run while one waits at a barrier.
+// What holds it back is latency, not bytes: a world's sweeps are a chain
+// of passes (sweeps x non-empty colors; 11 x 4 at pyramid(10)), each one
+// lane's few hundred dependent instructions and a barrier. The design
+// takes everything else off that chain:
+//
+//   * a world gets a block of `tw` threads, C / 2 of them, so that the
+//     pack's and the unpack's copies spread wide; a pass needs C / 10
+//     (ops/solve_middle.py `middle_shape`). Several worlds a block, as K4
+//     takes them, measured slower here;
+//   * resident path (a world's table fits a block's shared memory; C up
+//     to 1024): the pack gathers the lanes' 36 velocity rows through perm
+//     straight into shared memory (4-byte asynchronous copies), so a row
+//     crosses global memory once a call, not once a sweep. After the
+//     velocity sweeps the 15 position-only rows are gathered into the
+//     place of velocity-only rows 10-24 while the bodies integrate; the
+//     impulses (rows 47-50) and min_sep stay resident for the unpack.
+//     37 rows of C lanes: 47 KB a world at C = 256, four worlds an SM;
+//   * ring path (larger worlds, pyramid(44)'s C = 4096): the pack writes
+//     the table to a global scratch, and every sweep walks it through
+//     K4's ring of tiles in shared memory, as K4 and K5 do, in two tiles
+//     as wide as a block holds (a color split at a tile border costs a
+//     pass);
+//   * the overflow color's chunk deltas are applied by all threads in
+//     lane order (`apply_chunk`), not by one;
+//   * the unpack inverts perm in shared memory and writes each aux element
+//     once, 16 bytes a thread, as K6 does.
 //
 // Races: within a color the coloring makes lanes conflict-free on DYNAMIC
 // bodies only; static bodies are shared. A lane therefore writes back only
 // the endpoints flagged dynamic in dyn_ab (every other endpoint's delta is
 // exactly zero). The last color (max_colors - 1) holds the coloring's
 // overflow, whose lanes may share dynamic bodies: it runs in chunks of
-// kChunk lanes that all read the chunk-start state, and one thread then
-// applies their deltas in lane order (deterministic, no float atomics).
+// kChunk lanes that all read the chunk-start state, and their deltas are
+// then applied in lane order (deterministic, no float atomics). A lane's
+// impulses are written by the one thread that solves it, once a sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,11 +65,11 @@
 namespace {
 
 constexpr int kRows = 51;          // pack_cc_blob_t rows
-constexpr int kMinSepRow = 51;     // extra scratch row
+constexpr int kMinSepRow = 51;     // extra table row
 constexpr int kScratchRows = 52;
 constexpr int kAuxRows = 5;
 constexpr int kChunk = 256;        // overflow-color chunk width (the Pallas CK)
-constexpr int kThreads = 256;      // == kChunk: one lane per thread in a chunk
+constexpr int kThreads = 256;      // most threads a block
 
 // box2d_mt_tpu_torch/settings.py, rounded to float as the Python side does
 constexpr float kLinearSlop = 0.005f;
@@ -66,19 +83,21 @@ constexpr float kMaxRotationSquared = (float)(kMaxRotationD * kMaxRotationD);
 constexpr int kFaceA = 1;
 constexpr int kFaceB = 2;
 
-struct Rows {
-  const float* p;
-  int C;
-  int lane;
-  __device__ float operator()(int k) const { return p[(size_t)k * C + lane]; }
-};
+// Rows of the packed table that a sweep reads, as staged rows 0..kR-1:
+// velocity 0-31 and 47-50; position 0-3, 6-9 and 32-46.
+constexpr int kVelRows = 36;
+constexpr int kPosRows = 23;
+// K1's resident table: the 36 velocity rows (position rows 32-46 later
+// take the place of rows 10-24) and min_sep.
+constexpr int kResidentMinSep = 36;
+constexpr int kResidentRows = 37;
 
-// One velocity lane (velocity_contact_math_s, same operation order).
-// Body rows in `s`: [vx | vy | w], each n wide. Writes the lane's impulses
-// back to the packed rows and returns the six body deltas.
+// One velocity lane (velocity_contact_math_s, same operation order). `R`
+// reads table row k of the lane and stores its impulses. Body rows in
+// `s`: [vx | vy | w], each n wide. Returns the six body deltas.
 template <class RowsT>
-__device__ void velocity_lane(const RowsT R, float* P, int C, int lane, const float* s,
-                              int n, float d[6], int* ia_out, int* ib_out) {
+__device__ void velocity_lane(const RowsT& R, const float* s, int n, float d[6],
+                              int* ia_out, int* ib_out) {
   const bool m = R(0) > 0.5f;
   const int ia = (int)R(1), ib = (int)R(2), pc = (int)R(3);
   const float fr = R(4), ts = R(5), ma = R(6), mb = R(7), iA = R(8), iB = R(9);
@@ -176,10 +195,7 @@ __device__ void velocity_lane(const RowsT R, float* P, int C, int lane, const fl
     ni[1] = two_pt ? x2 : ni[1];
   }
 
-  P[(size_t)47 * C + lane] = ni[0];
-  P[(size_t)48 * C + lane] = ni[1];
-  P[(size_t)49 * C + lane] = ti[0];
-  P[(size_t)50 * C + lane] = ti[1];
+  R.put_impulses(ni[0], ni[1], ti[0], ti[1]);
   d[0] = m ? vax - vax0 : 0.0f;
   d[1] = m ? vay - vay0 : 0.0f;
   d[2] = m ? wa - wa0 : 0.0f;
@@ -192,9 +208,11 @@ __device__ void velocity_lane(const RowsT R, float* P, int C, int lane, const fl
 
 // One position lane (position_contact_math_s with _psm_s, same operation
 // order). Body rows in `s`: [cx | cy | a]. Stores min(0, separation).
+// Only the lane's own manifold type is evaluated: the plain version
+// computes all three and selects, and the selected expression is the same.
 template <class RowsT>
-__device__ void position_lane(const RowsT R, float* P, int C, int lane, const float* s,
-                              int n, float d[6], int* ia_out, int* ib_out) {
+__device__ void position_lane(const RowsT& R, const float* s, int n, float d[6],
+                              int* ia_out, int* ib_out) {
   const bool m = R(0) > 0.5f;
   const int ia = (int)R(1), ib = (int)R(2), pc = (int)R(3);
   const float ma = R(6), mb = R(7), iA = R(8), iB = R(9);
@@ -203,7 +221,6 @@ __device__ void position_lane(const RowsT R, float* P, int C, int lane, const fl
   const float ra = R(40), rb = R(41);
   const float lcax = R(42), lcay = R(43), lcbx = R(44), lcby = R(45);
   const int mtype = (int)R(46);
-  const bool is_a = mtype == kFaceA, is_b = mtype == kFaceB;
 
   const float cax0 = s[ia], cay0 = s[n + ia], aa0 = s[2 * n + ia];
   const float cbx0 = s[ib], cby0 = s[n + ib], ab0 = s[2 * n + ib];
@@ -212,44 +229,48 @@ __device__ void position_lane(const RowsT R, float* P, int C, int lane, const fl
 
   for (int j = 0; j < 2; ++j) {
     const bool has = m && (j < pc);
-    const float qas = sinf(aa), qac = cosf(aa);
-    const float qbs = sinf(ab), qbc = cosf(ab);
+    float qas, qac, qbs, qbc;
+    sincosf(aa, &qas, &qac);
+    sincosf(ab, &qbs, &qbc);
     const float pax = cax - (qac * lcax - qas * lcay);
     const float pay = cay - (qas * lcax + qac * lcay);
     const float pbx = cbx - (qbc * lcbx - qbs * lcby);
     const float pby = cby - (qbs * lcbx + qbc * lcby);
 
     // b2PositionSolverManifold::Initialize
-    const float pAx = qac * lpx - qas * lpy + pax;
-    const float pAy = qas * lpx + qac * lpy + pay;
-    const float pBx = qbc * mpx[0] - qbs * mpy[0] + pbx;
-    const float pBy = qbs * mpx[0] + qbc * mpy[0] + pby;
-    const float dx = pBx - pAx, dy = pBy - pAy;
-    const float dist = sqrtf(dx * dx + dy * dy);
-    const float ncx = dist > 0.0f ? dx / dist : 0.0f;
-    const float ncy = dist > 0.0f ? dy / dist : 0.0f;
-    const float ptcx = 0.5f * (pAx + pBx), ptcy = 0.5f * (pAy + pBy);
-    const float sep_c = dx * ncx + dy * ncy - ra - rb;
-
     const float clx = mpx[j], cly = mpy[j];
-    const float nax = qac * lnx - qas * lny;
-    const float nay = qas * lnx + qac * lny;
-    const float cAx = qbc * clx - qbs * cly + pbx;
-    const float cAy = qbs * clx + qbc * cly + pby;
-    const float sep_a = (cAx - pAx) * nax + (cAy - pAy) * nay - ra - rb;
-    const float nbx = qbc * lnx - qbs * lny;
-    const float nby = qbs * lnx + qbc * lny;
-    const float plane_bx = qbc * lpx - qbs * lpy + pbx;
-    const float plane_by = qbs * lpx + qbc * lpy + pby;
-    const float cBx = qac * clx - qas * cly + pax;
-    const float cBy = qas * clx + qac * cly + pay;
-    const float sep_b = (cBx - plane_bx) * nbx + (cBy - plane_by) * nby - ra - rb;
-
-    const float nx = is_a ? nax : is_b ? -nbx : ncx;
-    const float ny = is_a ? nay : is_b ? -nby : ncy;
-    const float px = is_a ? cAx : is_b ? cBx : ptcx;
-    const float py = is_a ? cAy : is_b ? cBy : ptcy;
-    const float sep = is_a ? sep_a : is_b ? sep_b : sep_c;
+    float nx, ny, px, py, sep;
+    if (mtype == kFaceA) {
+      const float pAx = qac * lpx - qas * lpy + pax;
+      const float pAy = qas * lpx + qac * lpy + pay;
+      nx = qac * lnx - qas * lny;
+      ny = qas * lnx + qac * lny;
+      px = qbc * clx - qbs * cly + pbx;
+      py = qbs * clx + qbc * cly + pby;
+      sep = (px - pAx) * nx + (py - pAy) * ny - ra - rb;
+    } else if (mtype == kFaceB) {
+      const float nbx = qbc * lnx - qbs * lny;
+      const float nby = qbs * lnx + qbc * lny;
+      const float plane_bx = qbc * lpx - qbs * lpy + pbx;
+      const float plane_by = qbs * lpx + qbc * lpy + pby;
+      px = qac * clx - qas * cly + pax;
+      py = qas * clx + qac * cly + pay;
+      sep = (px - plane_bx) * nbx + (py - plane_by) * nby - ra - rb;
+      nx = -nbx;
+      ny = -nby;
+    } else {
+      const float pAx = qac * lpx - qas * lpy + pax;
+      const float pAy = qas * lpx + qac * lpy + pay;
+      const float pBx = qbc * mpx[0] - qbs * mpy[0] + pbx;
+      const float pBy = qbs * mpx[0] + qbc * mpy[0] + pby;
+      const float dx = pBx - pAx, dy = pBy - pAy;
+      const float dist = sqrtf(dx * dx + dy * dy);
+      nx = dist > 0.0f ? dx / dist : 0.0f;
+      ny = dist > 0.0f ? dy / dist : 0.0f;
+      px = 0.5f * (pAx + pBx);
+      py = 0.5f * (pAy + pBy);
+      sep = dx * nx + dy * ny - ra - rb;
+    }
 
     const float r_ax = px - cax, r_ay = py - cay;
     const float r_bx = px - cbx, r_by = py - cby;
@@ -269,7 +290,7 @@ __device__ void position_lane(const RowsT R, float* P, int C, int lane, const fl
     ab = ab + iB * (r_bx * iy - r_by * ix);
   }
 
-  P[(size_t)kMinSepRow * C + lane] = m ? min_sep : 0.0f;
+  R.put_min_sep(m ? min_sep : 0.0f);
   d[0] = m ? cax - cax0 : 0.0f;
   d[1] = m ? cay - cay0 : 0.0f;
   d[2] = m ? aa - aa0 : 0.0f;
@@ -280,103 +301,289 @@ __device__ void position_lane(const RowsT R, float* P, int C, int lane, const fl
   *ib_out = ib;
 }
 
+template <bool kVelocity, class RowsT>
+__device__ __forceinline__ void solve_lane(const RowsT& R, const float* s, int n, float d[6],
+                                           int* ia, int* ib) {
+  if constexpr (kVelocity) velocity_lane(R, s, n, d, ia, ib);
+  else position_lane(R, s, n, d, ia, ib);
+}
+
 __device__ __forceinline__ void add3(float* s, int n, int b, const float* d) {
   s[b] += d[0];
   s[n + b] += d[1];
   s[2 * n + b] += d[2];
 }
 
-// One sweep over every color: conflict-free colors as one parallel pass,
-// the overflow color in Jacobi chunks applied in lane order.
 template <bool kVelocity>
-__device__ void sweep(float* P, int C, const int* cs, int mc, const int* perm,
-                      const uint8_t* dyn, float* s, int n, float* sd, int* sidx) {
+__device__ __forceinline__ int table_row(int r) {
+  if (kVelocity) return r < 32 ? r : r + 15;
+  return r < 4 ? r : r < 8 ? r + 2 : r + 24;
+}
+
+// A lane of a tile staged from the global table (K4, K5, K1's ring path):
+// reads the staged rows, stores its results to the table in global memory
+// (stores of neighbouring lanes to neighbouring addresses, off the chain).
+template <bool kVelocity>
+struct StagedRows {
+  const float* T;   // the tile in shared memory, `stride` lanes a row
+  int stride;
+  int lane;         // within the tile
+  float* P;         // the world's table in global memory
+  int C;
+  int p;            // packed position
+  __device__ float operator()(int k) const {
+    const int r = kVelocity ? (k < 32 ? k : k - 15) : (k < 4 ? k : k < 10 ? k - 2 : k - 24);
+    return T[r * stride + lane];
+  }
+  __device__ void put_impulses(float n0, float n1, float t0, float t1) const {
+    P[(size_t)47 * C + p] = n0;
+    P[(size_t)48 * C + p] = n1;
+    P[(size_t)49 * C + p] = t0;
+    P[(size_t)50 * C + p] = t1;
+  }
+  __device__ void put_min_sep(float x) const { P[(size_t)kMinSepRow * C + p] = x; }
+};
+
+// A lane of K1's resident table: velocity rows 0-31 at 0-31 and the
+// impulses 47-50 at 32-35; position rows 0-3 and 6-9 where they are, rows
+// 32-46 at 10-24; min_sep at 36. Results stay in shared memory.
+template <bool kVelocity>
+struct ResidentRows {
+  float* T;         // `cap` lanes a row
+  int cap;
+  int p;
+  __device__ float operator()(int k) const {
+    const int r = kVelocity ? (k < 32 ? k : k - 15) : (k < 10 ? k : k - 22);
+    return T[r * cap + p];
+  }
+  __device__ void put_impulses(float n0, float n1, float t0, float t1) const {
+    T[32 * cap + p] = n0;
+    T[33 * cap + p] = n1;
+    T[34 * cap + p] = t0;
+    T[35 * cap + p] = t1;
+  }
+  __device__ void put_min_sep(float x) const { T[kResidentMinSep * cap + p] = x; }
+};
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// One world's shared memory, in bytes from its base (all 16-byte aligned):
+// `row_floats` of staged rows, the overflow chunk's deltas and endpoints,
+// `planes` body planes (two: K1's velocities and positions, and then the
+// movable flags), color_start, the dynamic-endpoint flags in packed order.
+// ops/solve_middle.py `_world_bytes` repeats the sum.
+struct WorldLayout {
+  int sd, sidx, body, mov, cs, dyn, bytes;
+  __host__ __device__ WorldLayout(int row_floats, int planes, int n, int C, int mc) {
+    const int chunk = C < kChunk ? (C + 31) & ~31 : kChunk;   // lanes an overflow chunk can hold
+    sd = align16(row_floats * 4);
+    sidx = sd + 6 * chunk * 4;
+    body = sidx + 2 * chunk * 4;
+    mov = body + planes * align16(3 * n * 4);
+    cs = mov + (planes > 1 ? align16(n) : 0);
+    dyn = cs + align16((mc + 1) * 4);
+    bytes = dyn + align16(C);
+  }
+};
+
+// Staged rows of a sweep (K4, K5): `nbuf` tiles of `rows` rows.
+__host__ __device__ inline WorldLayout sweep_layout(int rows, int n, int C, int mc, int tile,
+                                                    int nbuf) {
+  return WorldLayout(nbuf * rows * tile, 1, n, C, mc);
+}
+
+// K1: 37 resident rows of `tile` (>= C) lanes, or the ring's tiles of the
+// velocity rows (which also hold perm's inverse, C ints, for the unpack).
+__host__ __device__ inline WorldLayout middle_layout(bool resident, int n, int C, int mc,
+                                                     int tile, int nbuf) {
+  const int ring = nbuf * kVelRows * tile;
+  const int rows = resident ? kResidentRows * tile : ring > C ? ring : C;
+  return WorldLayout(rows, 2, n, C, mc);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The threads of one world: barrier `id` (1..15; 0 is __syncthreads') of
+// `width` threads, or the warp's own when the world has one warp.
+struct Group {
+  int id, width;
+  __device__ __forceinline__ void sync() const {
+    if (width == 32) __syncwarp();
+    else asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(width) : "memory");
+  }
+};
+
+// Apply an overflow chunk's deltas in lane order (A endpoint, then B):
+// each thread owns bodies and sums their deltas in a register, so every
+// body receives its deltas in the order a serial apply gives them.
+__device__ void apply_chunk(float* s, int n, const float* sd, const int2* sidx, int cnt,
+                            int tid, int tw) {
+  for (int b = tid; b < n; b += tw) {
+    float x = s[b], y = s[n + b], z = s[2 * n + b];
+    bool hit = false;
+    for (int q = 0; q < cnt; ++q) {
+      const int2 e = sidx[q];
+      if (e.x == b) {
+        x += sd[6 * q];
+        y += sd[6 * q + 1];
+        z += sd[6 * q + 2];
+        hit = true;
+      }
+      if (e.y == b) {
+        x += sd[6 * q + 3];
+        y += sd[6 * q + 4];
+        z += sd[6 * q + 5];
+        hit = true;
+      }
+    }
+    if (hit) {
+      s[b] = x;
+      s[n + b] = y;
+      s[2 * n + b] = z;
+    }
+  }
+}
+
+// The one sweep implementation (K1, K4, K5): the color passes over lanes
+// [t0, t1) of staged rows; `rows(p)` is packed position p's accessor.
+// Conflict-free colors are one parallel pass each. The overflow color's
+// chunks start at its first lane, every kChunk lanes; a chunk's lanes all
+// read the chunk-start state, and the chunk is applied once complete (a
+// chunk that straddles t1 is finished by the caller's next tile, whose
+// span starts inside it). Every pass ends at the world's barrier.
+template <bool kVelocity, class RowsAt>
+__device__ void sweep_span(const RowsAt& rows, int t0, int t1, const int* scs, int mc,
+                           float* sb, int n, const uint8_t* sdyn, float* sd, int2* sidx,
+                           const Group& g, int tid, int tw) {
   for (int c = 0; c < mc; ++c) {
-    const int s0 = cs[c], s1 = cs[c + 1];
-    if (s0 >= s1) continue;  // same for every thread of the block
+    const int c0 = scs[c], c1 = scs[c + 1];
+    const int s0 = max(c0, t0), s1 = min(c1, t1);
+    if (s0 >= s1) continue;  // same for every thread of the world
     if (c < mc - 1) {
-      for (int p = s0 + threadIdx.x; p < s1; p += blockDim.x) {
+      for (int p = s0 + tid; p < s1; p += tw) {
         float d[6];
         int ia, ib;
-        if (kVelocity) velocity_lane(Rows{P, C, p}, P, C, p, s, n, d, &ia, &ib);
-        else position_lane(Rows{P, C, p}, P, C, p, s, n, d, &ia, &ib);
-        const uint8_t f = dyn[perm[p]];
-        if (f & 1) add3(s, n, ia, d);
-        if (f & 2) add3(s, n, ib, d + 3);
+        solve_lane<kVelocity>(rows(p), sb, n, d, &ia, &ib);
+        const uint8_t f = sdyn[p];
+        if (f & 1) add3(sb, n, ia, d);
+        if (f & 2) add3(sb, n, ib, d + 3);
       }
-      __syncthreads();
+      g.sync();
     } else {
-      for (int ch = s0; ch < s1; ch += kChunk) {
-        const int cnt = min(kChunk, s1 - ch);
-        const int l = threadIdx.x;
-        if (l < cnt) {
+      for (int ch = c0 + (s0 - c0) / kChunk * kChunk; ch < s1; ch += kChunk) {
+        const int ce = min(ch + kChunk, c1);
+        for (int p = max(ch, s0) + tid; p < min(ce, s1); p += tw) {
           float d[6];
           int ia, ib;
-          if (kVelocity) velocity_lane(Rows{P, C, ch + l}, P, C, ch + l, s, n, d, &ia, &ib);
-          else position_lane(Rows{P, C, ch + l}, P, C, ch + l, s, n, d, &ia, &ib);
-          const uint8_t f = dyn[perm[ch + l]];
+          solve_lane<kVelocity>(rows(p), sb, n, d, &ia, &ib);
+          const uint8_t f = sdyn[p];
+          const int l = p - ch;
           for (int q = 0; q < 6; ++q) sd[6 * l + q] = d[q];
-          sidx[2 * l] = (f & 1) ? ia : -1;
-          sidx[2 * l + 1] = (f & 2) ? ib : -1;
+          sidx[l] = make_int2((f & 1) ? ia : -1, (f & 2) ? ib : -1);
         }
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          for (int q = 0; q < cnt; ++q) {
-            if (sidx[2 * q] >= 0) add3(s, n, sidx[2 * q], sd + 6 * q);
-            if (sidx[2 * q + 1] >= 0) add3(s, n, sidx[2 * q + 1], sd + 6 * q + 3);
-          }
+        if (ce <= t1) {
+          g.sync();
+          apply_chunk(sb, n, sd, sidx, ce - ch, tid, tw);
+          g.sync();
         }
-        __syncthreads();
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
-                    const int* __restrict__ color_start,
-                    const uint8_t* __restrict__ dyn_ab,
-                    const float* __restrict__ vel, const float* __restrict__ pos,
-                    const uint8_t* __restrict__ movable,
-                    float* __restrict__ vel_out, float* __restrict__ pos_out,
-                    float* __restrict__ aux, float* __restrict__ scratch,
-                    int n, int C, int mc, int vi, int pi, float dt) {
-  extern __shared__ float smem[];
-  float* sv = smem;                          // [vx | vy | w]
-  float* sp = smem + 3 * n;                  // [cx | cy | a]
-  float* sd = smem + 6 * n;                  // overflow chunk deltas
-  int* sidx = reinterpret_cast<int*>(sd + 6 * kChunk);
-  uint8_t* smov = reinterpret_cast<uint8_t*>(sidx + 2 * kChunk);
-
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* B = blob + (size_t)w * kRows * C;
-  const int* pw = perm + (size_t)w * C;
-  const int* cs = color_start + (size_t)w * (mc + 1);
-  const uint8_t* dyn = dyn_ab + (size_t)w * C;
-  float* P = scratch + (size_t)w * kScratchRows * C;
-  const size_t bo = (size_t)w * 3 * n;
-
-  for (int i = tid; i < 3 * n; i += blockDim.x) {
-    sv[i] = vel[bo + i];
-    sp[i] = pos[bo + i];
+// Start staging lanes [t0, t0 + cnt) of the needed rows into `dst` (`tile`
+// lanes a row): 16-byte asynchronous copies, one group a tile and thread
+// (t0 and C are multiples of 4, so a rounded-up run stays inside its row),
+// or plain loads where the rows are not 16-byte aligned.
+template <bool kVelocity>
+__device__ void load_tile(const float* P, int C, float* dst, int t0, int cnt, int tile,
+                          int tid, int tw, bool aligned) {
+  constexpr int kR = kVelocity ? kVelRows : kPosRows;
+  if (aligned) {
+    const int q = (cnt + 3) / 4;
+    for (int i = tid; i < kR * q; i += tw) {
+      const int r = i / q, l = (i - r * q) * 4;
+      cp_async16(dst + r * tile + l, P + (size_t)table_row<kVelocity>(r) * C + t0 + l);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < kR * cnt; i += tw) {
+      const int r = i / cnt, l = i - r * cnt;
+      dst[r * tile + l] = P[(size_t)table_row<kVelocity>(r) * C + t0 + l];
+    }
   }
-  for (int i = tid; i < n; i += blockDim.x) smov[i] = movable[(size_t)w * n + i];
+}
 
-  // pack: slot-order rows -> color-major packed order
-  const int total = cs[mc];
-  for (int p = tid; p < total; p += blockDim.x) {
-    const int slot = pw[p];
-    for (int k = 0; k < kRows; ++k) P[(size_t)k * C + p] = B[(size_t)k * C + slot];
-    P[(size_t)kMinSepRow * C + p] = 0.0f;
+// The ring over a world's table in global memory (K4, K5, K1's ring
+// path): `ring_start` stages the first `nbuf` tiles; `ring_run` sweeps
+// tile after tile, the next tile's copies in flight while one is swept.
+// Splitting a color at a tile border changes nothing: its lanes share no
+// dynamic body.
+template <bool kVelocity>
+__device__ void ring_start(const float* P, int C, float* srows, int total, int tile, int nbuf,
+                           int tid, int tw, bool aligned) {
+  constexpr int kR = kVelocity ? kVelRows : kPosRows;
+  const int n_tiles = (total + tile - 1) / tile;
+  for (int j = 0; j < min(nbuf, n_tiles); ++j)
+    load_tile<kVelocity>(P, C, srows + (size_t)j * kR * tile, j * tile,
+                         min(tile, total - j * tile), tile, tid, tw, aligned);
+}
+
+template <bool kVelocity>
+__device__ void ring_run(float* P, int C, float* srows, int total, int tile, int nbuf,
+                         bool aligned, const int* scs, int mc, float* sb, int n,
+                         const uint8_t* sdyn, float* sd, int2* sidx, const Group& g, int tid,
+                         int tw) {
+  constexpr int kR = kVelocity ? kVelRows : kPosRows;
+  const int n_tiles = (total + tile - 1) / tile;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % nbuf;
+    const int t0 = j * tile, t1 = min(t0 + tile, total);
+    const float* T = srows + (size_t)buf * kR * tile;
+    if (aligned) {
+      // this tile's group has landed once at most the newest one (the
+      // next tile's, where one was started) is pending
+      if (nbuf > 1 && j + 1 < n_tiles) cp_async_wait<1>();
+      else cp_async_wait<0>();
+    }
+    g.sync();  // every thread's share of the tile is in place
+    const auto rows = [=](int p) { return StagedRows<kVelocity>{T, tile, p - t0, P, C, p}; };
+    sweep_span<kVelocity>(rows, t0, t1, scs, mc, sb, n, sdyn, sd, sidx, g, tid, tw);
+    if (j + nbuf < n_tiles) {
+      g.sync();  // every thread is done with this buffer
+      load_tile<kVelocity>(P, C, srows + (size_t)buf * kR * tile, (j + nbuf) * tile,
+                           min(tile, total - (j + nbuf) * tile), tile, tid, tw, aligned);
+    }
   }
-  __syncthreads();
+}
 
-  for (int it = 0; it < vi; ++it) sweep<true>(P, C, cs, mc, pw, dyn, sv, n, sd, sidx);
-
-  // integrate positions with the translation/rotation clamps
+// Integrate positions with the translation/rotation clamps (b2Island.cpp
+// :283-313); velocities are clamped in place.
+__device__ void integrate_bodies(float* sv, float* sp, const uint8_t* smov, int n, float dt,
+                                 int tid, int tw) {
   const float dt2 = dt * dt;
-  for (int i = tid; i < n; i += blockDim.x) {
+  for (int i = tid; i < n; i += tw) {
     float vx = sv[i], vy = sv[n + i], wz = sv[2 * n + i];
     const float t2 = dt2 * (vx * vx + vy * vy);
     const float tlen = sqrtf(fmaxf(t2, 1e-30f));
@@ -396,23 +603,165 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
       sp[2 * n + i] = sp[2 * n + i] + dt * wz;
     }
   }
-  __syncthreads();
+}
 
-  for (int it = 0; it < pi; ++it) sweep<false>(P, C, cs, mc, pw, dyn, sp, n, sd, sidx);
+// perm's inverse for the first `total` packed positions: inv[slot] = p,
+// -1 where no lane solved the slot. `inv` must hold -1 everywhere first.
+__device__ void invert_perm(const int* pw, int total, int C, int* inv, int tid, int tw) {
+  for (int p = tid; p < total; p += tw) {
+    const int slot = pw[p];
+    if ((unsigned)slot < (unsigned)C) inv[slot] = p;
+  }
+}
 
-  for (int i = tid; i < 3 * n; i += blockDim.x) {
+// The world's five aux rows in slot order, each element written once:
+// src[r][inv[slot]], or 0 where inv is -1; 16 bytes a thread when `vec`.
+__device__ void write_aux(const int* inv, const float* const src[kAuxRows], float* A, int C,
+                          bool vec, int tid, int tw) {
+  for (int r = 0; r < kAuxRows; ++r) {
+    const float* s = src[r];
+    if (vec) {
+      for (int i = tid; i < C / 4; i += tw) {
+        const int4 iv = reinterpret_cast<const int4*>(inv)[i];
+        float4 v;
+        v.x = iv.x >= 0 ? s[iv.x] : 0.0f;
+        v.y = iv.y >= 0 ? s[iv.y] : 0.0f;
+        v.z = iv.z >= 0 ? s[iv.z] : 0.0f;
+        v.w = iv.w >= 0 ? s[iv.w] : 0.0f;
+        reinterpret_cast<float4*>(A + (size_t)r * C)[i] = v;
+      }
+    } else {
+      for (int i = tid; i < C; i += tw) {
+        const int p = inv[i];
+        A[(size_t)r * C + i] = p >= 0 ? s[p] : 0.0f;
+      }
+    }
+  }
+}
+
+// K1, a block of `tw` threads a world. Resident path (`resident`): the
+// world's table lives in shared memory for the whole call, `tile` (>= C)
+// lanes a row. Ring path: the
+// table lives in a global scratch (W, 52, C), which every sweep walks
+// through shared memory in tiles of `tile` lanes, as K4 and K5 do.
+__global__ void __launch_bounds__(kThreads)
+solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
+                    const int* __restrict__ color_start, const uint8_t* __restrict__ dyn_ab,
+                    const float* __restrict__ vel, const float* __restrict__ pos,
+                    const uint8_t* __restrict__ movable, float* __restrict__ vel_out,
+                    float* __restrict__ pos_out, float* __restrict__ aux, float* scratch,
+                    int n, int C, int mc, int vi, int pi, float dt, int tw, int resident,
+                    int tile, int nbuf, int aligned, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const WorldLayout lay = middle_layout(resident, n, C, mc, tile, nbuf);
+  const int tid = threadIdx.x, w = blockIdx.x;
+  unsigned char* base = smem_raw;
+  float* T = reinterpret_cast<float*>(base);                 // the table, or the ring's tiles
+  float* sd = reinterpret_cast<float*>(base + lay.sd);       // overflow chunk deltas
+  int2* sidx = reinterpret_cast<int2*>(base + lay.sidx);     // and endpoints (-1: none)
+  float* sv = reinterpret_cast<float*>(base + lay.body);     // [vx | vy | w]
+  float* sp = sv + align16(3 * n * 4) / 4;                   // [cx | cy | a]
+  uint8_t* smov = base + lay.mov;
+  int* scs = reinterpret_cast<int*>(base + lay.cs);
+  uint8_t* sdyn = base + lay.dyn;                            // dyn_ab in packed order
+
+  const Group g{1, tw};
+  const float* B = blob + (size_t)w * kRows * C;
+  const int* pw = perm + (size_t)w * C;
+  const int* cs = color_start + (size_t)w * (mc + 1);
+  const uint8_t* dyn = dyn_ab + (size_t)w * C;
+  float* P = resident ? nullptr : scratch + (size_t)w * kScratchRows * C;
+  const size_t bo = (size_t)w * 3 * n;
+  const int total = min(cs[mc], C);
+
+  // pack: resident, the solved lanes' velocity rows gathered through perm
+  // by 4-byte asynchronous copies; ring, every row into the global table
+  for (int p = tid; p < total; p += tw) {
+    const int slot = pw[p];
+    sdyn[p] = dyn[slot];
+    if (resident) {
+      for (int k = 0; k < kVelRows; ++k)
+        cp_async4(T + k * tile + p, B + (size_t)table_row<true>(k) * C + slot);
+      T[kResidentMinSep * tile + p] = 0.0f;
+    } else {
+      for (int k = 0; k < kRows; ++k) P[(size_t)k * C + p] = B[(size_t)k * C + slot];
+      P[(size_t)kMinSepRow * C + p] = 0.0f;
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i <= mc; i += tw) scs[i] = cs[i];
+  for (int i = tid; i < 3 * n; i += tw) {
+    sv[i] = vel[bo + i];
+    sp[i] = pos[bo + i];
+  }
+  for (int i = tid; i < n; i += tw) smov[i] = movable[(size_t)w * n + i];
+  cp_async_wait<0>();
+  // ring: the table's stores are in L2, where the tiles' copies read,
+  // before any thread stages from it; so are a sweep's before the next's
+  if (!resident) __threadfence();
+  g.sync();
+
+  const auto vrows = [=](int p) { return ResidentRows<true>{T, tile, p}; };
+  for (int it = 0; it < vi; ++it) {
+    if (resident) {
+      sweep_span<true>(vrows, 0, total, scs, mc, sv, n, sdyn, sd, sidx, g, tid, tw);
+    } else {
+      ring_start<true>(P, C, T, total, tile, nbuf, tid, tw, aligned);
+      ring_run<true>(P, C, T, total, tile, nbuf, aligned, scs, mc, sv, n, sdyn, sd, sidx, g,
+                     tid, tw);
+      __threadfence();
+    }
+    g.sync();
+  }
+
+  // resident: the position-only rows 32-46 into the place of rows 10-24
+  // while the bodies integrate, and perm's inverse into row 4's place
+  int* inv = reinterpret_cast<int*>(resident ? T + 4 * tile : T);
+  if (resident) {
+    for (int p = tid; p < total; p += tw) {
+      const int slot = pw[p];
+      for (int k = 0; k < 15; ++k)
+        cp_async4(T + (10 + k) * tile + p, B + (size_t)(32 + k) * C + slot);
+    }
+    cp_async_commit();
+    for (int i = tid; i < C; i += tw) inv[i] = -1;
+  }
+  integrate_bodies(sv, sp, smov, n, dt, tid, tw);
+  g.sync();
+  if (resident) {
+    invert_perm(pw, total, C, inv, tid, tw);
+    cp_async_wait<0>();
+    g.sync();
+  }
+
+  const auto prows = [=](int p) { return ResidentRows<false>{T, tile, p}; };
+  for (int it = 0; it < pi; ++it) {
+    if (resident) {
+      sweep_span<false>(prows, 0, total, scs, mc, sp, n, sdyn, sd, sidx, g, tid, tw);
+    } else {
+      ring_start<false>(P, C, T, total, tile, nbuf, tid, tw, aligned);
+      ring_run<false>(P, C, T, total, tile, nbuf, aligned, scs, mc, sp, n, sdyn, sd, sidx, g,
+                      tid, tw);
+      __threadfence();
+    }
+    g.sync();
+  }
+
+  for (int i = tid; i < 3 * n; i += tw) {
     vel_out[bo + i] = sv[i];
     pos_out[bo + i] = sp[i];
   }
-  // unpack: impulses + min separation back to slot order (0 when unused)
-  float* A = aux + (size_t)w * kAuxRows * C;
-  for (int i = tid; i < kAuxRows * C; i += blockDim.x) A[i] = 0.0f;
-  __syncthreads();
-  for (int p = tid; p < total; p += blockDim.x) {
-    const int slot = pw[p];
-    for (int r = 0; r < 4; ++r) A[(size_t)r * C + slot] = P[(size_t)(47 + r) * C + p];
-    A[(size_t)4 * C + slot] = P[(size_t)kMinSepRow * C + p];
+  if (!resident) {  // the tiles are done: perm's inverse takes their place
+    for (int i = tid; i < C; i += tw) inv[i] = -1;
+    g.sync();
+    invert_perm(pw, total, C, inv, tid, tw);
+    g.sync();
   }
+  const float* src[kAuxRows];
+  for (int r = 0; r < kAuxRows; ++r)
+    src[r] = resident ? T + (r < 4 ? 32 + r : kResidentMinSep) * tile
+                      : P + (size_t)(r < 4 ? 47 + r : kMinSepRow) * C;
+  write_aux(inv, src, aux + (size_t)w * kAuxRows * C, C, vec, tid, tw);
 }
 
 // ---------------------------------------------------------------------------
@@ -454,160 +803,34 @@ pack_packed_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
 // 256 x tumbler(200): 4 us) nor its flops: a world's colors run one after
 // the other (the tumbler: 15 colors and an overflow chunk), and each pass
 // is one warp's worth of lanes running a lane's few hundred dependent
-// instructions. That chain of passes cannot be shortened here (the
-// arithmetic and its order are fixed), so the design takes everything
+// instructions. That chain of passes is fixed by the coloring, the
+// arithmetic and its order (--fmad=false), so the design takes everything
 // else off it:
 //
 //   * the table is color-major, so row k of a world is one contiguous run
 //     of lanes. At kernel entry a world's threads start asynchronous
 //     16-byte copies (cp.async) of the needed rows (36 for a velocity
 //     sweep, 23 for a position sweep) of its first tiles of `tile` lanes
-//     into shared memory; the color passes read shared memory only. A
-//     world with more lanes than the buffers hold walks its tiles through
-//     the ring, the next tile's copies in flight while this one is swept.
-//     color_start, the body plane and the lanes' dynamic-endpoint flags
-//     (dyn_ab through perm) are staged by plain loads while the copies
-//     fly. A table whose rows are not 16-byte aligned (C not a multiple
-//     of 4) is staged by plain loads. (One 1-D bulk copy a row,
-//     cp.async.bulk on an mbarrier, measured no faster: a row's run is
-//     about 1 KB, and the copies are then bound by their count.)
+//     into shared memory (`ring_start`); the color passes read shared
+//     memory only. A world with more lanes than the buffers hold walks its
+//     tiles through the ring (`ring_run`), the next tile's copies in flight
+//     while this one is swept. color_start, the body plane and the lanes'
+//     dynamic-endpoint flags (dyn_ab through perm) are staged by plain
+//     loads while the copies fly. A table whose rows are not 16-byte
+//     aligned (C not a multiple of 4) is staged by plain loads.
 //   * a world gets `tw` threads (one warp at 128 slots, 256 threads from
 //     1024) and a block holds several worlds; a world's threads meet at a
-//     named barrier of their own width (__syncwarp for one warp), not at
-//     a block barrier. The host picks tw, the worlds a block, the tile
-//     and the ring depth from the static shapes (ops/solve_middle.py
-//     `sweep_shape`).
-//   * the overflow chunk's deltas are applied by all threads, each owning
-//     bodies and scanning the chunk's endpoints in lane order, so every
-//     body receives its deltas in the order the serial apply gave them
-//     (bit-identical), in ~cnt compares a thread.
-//   * a lane's impulses (or min_sep) go straight to global memory: stores
-//     of neighbouring lanes to neighbouring addresses, off the chain.
+//     named barrier of their own width (__syncwarp for one warp). The host
+//     picks tw, the worlds a block, the tile and the ring depth from the
+//     static shapes (ops/solve_middle.py `sweep_shape`).
+//   * the overflow chunk's deltas are applied by all threads in lane order.
+//   * a position lane evaluates only its own manifold type and takes sine
+//     and cosine of an angle from one sincosf: the two choices that shorten
+//     its chain without changing a bit of its result.
 //
-// Splitting a color at a tile border changes nothing: its lanes share no
-// dynamic body. An overflow chunk that straddles a border computes all its
-// lanes from the chunk-start state (nothing is applied in between) and is
-// applied once complete.
-
-// Rows of the packed table that a sweep reads, as staged rows 0..kR-1:
-// velocity 0-31 and 47-50; position 0-3, 6-9 and 32-46.
-constexpr int kVelRows = 36;
-constexpr int kPosRows = 23;
-
-template <bool kVelocity>
-__device__ __forceinline__ int table_row(int r) {
-  if (kVelocity) return r < 32 ? r : r + 15;
-  return r < 4 ? r : r < 8 ? r + 2 : r + 24;
-}
-
-template <bool kVelocity>
-struct StagedRows {
-  const float* p;   // the tile in shared memory, `stride` lanes a row
-  int stride;
-  int lane;         // within the tile
-  __device__ float operator()(int k) const {
-    const int r = kVelocity ? (k < 32 ? k : k - 15) : (k < 4 ? k : k < 10 ? k - 2 : k - 24);
-    return p[r * stride + lane];
-  }
-};
-
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
-
-// One world's shared memory, in bytes from its base (all 16-byte aligned).
-// ops/solve_middle.py `_sweep_world_bytes` repeats the sum.
-struct StagedLayout {
-  int sd, sidx, body, cs, dyn, bytes;
-  __host__ __device__ StagedLayout(int rows, int n, int C, int mc, int tile, int nbuf) {
-    const int chunk = C < kChunk ? (C + 31) & ~31 : kChunk;   // lanes an overflow chunk can hold
-    sd = nbuf * rows * tile * 4;          // after the row buffers
-    sidx = sd + 6 * chunk * 4;
-    body = sidx + 2 * chunk * 4;
-    cs = body + align16(3 * n * 4);
-    dyn = cs + align16((mc + 1) * 4);
-    bytes = dyn + align16(C);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
-
-// The threads of one world: barrier `id` (1..15; 0 is __syncthreads') of
-// `width` threads, or the warp's own when the world has one warp.
-struct Group {
-  int id, width;
-  __device__ __forceinline__ void sync() const {
-    if (width == 32) __syncwarp();
-    else asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(width) : "memory");
-  }
-};
-
-// Start staging lanes [t0, t0 + cnt) of the needed rows into `dst` (`tile`
-// lanes a row): 16-byte asynchronous copies, one group a tile and thread
-// (t0 and C are multiples of 4, so a rounded-up run stays inside its row),
-// or plain loads where the rows are not 16-byte aligned.
-template <bool kVelocity>
-__device__ void load_tile(const float* P, int C, float* dst, int t0, int cnt, int tile,
-                          int tid, int tw, bool aligned) {
-  constexpr int kR = kVelocity ? kVelRows : kPosRows;
-  if (aligned) {
-    const int q = (cnt + 3) / 4;
-    for (int i = tid; i < kR * q; i += tw) {
-      const int r = i / q, l = (i - r * q) * 4;
-      cp_async16(dst + r * tile + l, P + (size_t)table_row<kVelocity>(r) * C + t0 + l);
-    }
-    cp_async_commit();
-  } else {
-    for (int i = tid; i < kR * cnt; i += tw) {
-      const int r = i / cnt, l = i - r * cnt;
-      dst[r * tile + l] = P[(size_t)table_row<kVelocity>(r) * C + t0 + l];
-    }
-  }
-}
-
-// Apply an overflow chunk's deltas in lane order (A endpoint, then B):
-// each thread owns bodies and sums their deltas in a register.
-__device__ void apply_chunk(float* s, int n, const float* sd, const int2* sidx, int cnt,
-                            int tid, int tw) {
-  for (int b = tid; b < n; b += tw) {
-    float x = s[b], y = s[n + b], z = s[2 * n + b];
-    bool hit = false;
-    for (int q = 0; q < cnt; ++q) {
-      const int2 e = sidx[q];
-      if (e.x == b) {
-        x += sd[6 * q];
-        y += sd[6 * q + 1];
-        z += sd[6 * q + 2];
-        hit = true;
-      }
-      if (e.y == b) {
-        x += sd[6 * q + 3];
-        y += sd[6 * q + 4];
-        z += sd[6 * q + 5];
-        hit = true;
-      }
-    }
-    if (hit) {
-      s[b] = x;
-      s[n + b] = y;
-      s[2 * n + b] = z;
-    }
-  }
-}
+// Races: as K1's. An overflow chunk that straddles a tile border computes
+// all its lanes from the chunk-start state (nothing is applied in between)
+// and is applied once complete.
 
 template <bool kVelocity>
 __global__ void __launch_bounds__(kThreads)
@@ -618,8 +841,7 @@ iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
                    int n_worlds, int n, int C, int mc, int tw, int tile, int nbuf,
                    int aligned) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kR = kVelocity ? kVelRows : kPosRows;
-  const StagedLayout lay(kR, n, C, mc, tile, nbuf);
+  const WorldLayout lay = sweep_layout(kVelocity ? kVelRows : kPosRows, n, C, mc, tile, nbuf);
   const int group = threadIdx.x / tw, tid = threadIdx.x - group * tw;
   unsigned char* base = smem_raw + (size_t)group * lay.bytes;
   float* srows = reinterpret_cast<float*>(base);
@@ -639,72 +861,13 @@ iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
   const uint8_t* dyn = dyn_ab + (size_t)w * C;
   const size_t bo = (size_t)w * 3 * n;
   const int total = min(cs[mc], C);
-  const int n_tiles = (total + tile - 1) / tile;
 
-  for (int j = 0; j < min(nbuf, n_tiles); ++j)
-    load_tile<kVelocity>(P, C, srows + (size_t)j * kR * tile, j * tile,
-                         min(tile, total - j * tile), tile, tid, tw, aligned);
+  ring_start<kVelocity>(P, C, srows, total, tile, nbuf, tid, tw, aligned);
   for (int i = tid; i <= mc; i += tw) scs[i] = cs[i];
   for (int i = tid; i < 3 * n; i += tw) sb[i] = body_in[bo + i];
   for (int p = tid; p < total; p += tw) sdyn[p] = dyn[pw[p]];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j % nbuf;
-    const int t0 = j * tile, t1 = min(t0 + tile, total);
-    const float* T = srows + (size_t)buf * kR * tile;
-    if (aligned) {
-      // this tile's group has landed once at most the newest one (the
-      // next tile's, where one was started) is pending
-      if (nbuf > 1 && j + 1 < n_tiles) cp_async_wait<1>();
-      else cp_async_wait<0>();
-    }
-    g.sync();  // every thread's share of the tile is in place
-    for (int c = 0; c < mc; ++c) {
-      const int c0 = scs[c], c1 = scs[c + 1];
-      const int s0 = max(c0, t0), s1 = min(c1, t1);
-      if (s0 >= s1) continue;  // same for every thread of the world
-      if (c < mc - 1) {
-        for (int p = s0 + tid; p < s1; p += tw) {
-          float d[6];
-          int ia, ib;
-          const StagedRows<kVelocity> R{T, tile, p - t0};
-          if constexpr (kVelocity) velocity_lane(R, P, C, p, sb, n, d, &ia, &ib);
-          else position_lane(R, P, C, p, sb, n, d, &ia, &ib);
-          const uint8_t f = sdyn[p];
-          if (f & 1) add3(sb, n, ia, d);
-          if (f & 2) add3(sb, n, ib, d + 3);
-        }
-        g.sync();
-      } else {
-        // the chunks start at c0, c0 + kChunk, ...: the first one here is
-        // the chunk that holds lane s0
-        for (int ch = c0 + (s0 - c0) / kChunk * kChunk; ch < s1; ch += kChunk) {
-          const int ce = min(ch + kChunk, c1);
-          for (int p = max(ch, s0) + tid; p < min(ce, s1); p += tw) {
-            float d[6];
-            int ia, ib;
-            const StagedRows<kVelocity> R{T, tile, p - t0};
-            if constexpr (kVelocity) velocity_lane(R, P, C, p, sb, n, d, &ia, &ib);
-            else position_lane(R, P, C, p, sb, n, d, &ia, &ib);
-            const uint8_t f = sdyn[p];
-            const int l = p - ch;
-            for (int q = 0; q < 6; ++q) sd[6 * l + q] = d[q];
-            sidx[l] = make_int2((f & 1) ? ia : -1, (f & 2) ? ib : -1);
-          }
-          if (ce <= t1) {  // complete: the rest of a straddling chunk comes with the next tile
-            g.sync();
-            apply_chunk(sb, n, sd, sidx, ce - ch, tid, tw);
-            g.sync();
-          }
-        }
-      }
-    }
-    if (j + nbuf < n_tiles) {
-      g.sync();  // every thread is done with this buffer
-      load_tile<kVelocity>(P, C, srows + (size_t)buf * kR * tile, (j + nbuf) * tile,
-                           min(tile, total - (j + nbuf) * tile), tile, tid, tw, aligned);
-    }
-  }
+  ring_run<kVelocity>(P, C, srows, total, tile, nbuf, aligned, scs, mc, sb, n, sdyn, sd, sidx,
+                      g, tid, tw);
   for (int i = tid; i < 3 * n; i += tw) body_out[bo + i] = sb[i];
 }
 
@@ -780,16 +943,20 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+bool bad_group(int tw, int wpb) {
+  return tw < 32 || tw % 32 != 0 || wpb < 1 || wpb > 15 || tw * wpb > kThreads;
+}
+
 template <bool kVelocity>
 int iter_packed_launch(float* packed, const int* perm, const int* color_start,
                        const uint8_t* dyn_ab, const float* body_in, float* body_out,
                        int n_worlds, int n_bodies, int n_contacts, int max_colors,
                        int tw, int wpb, int tile, int nbuf, void* stream) {
   if (n_worlds <= 0) return 0;
-  if (tw < 32 || tw % 32 != 0 || wpb < 1 || wpb > 15 || tw * wpb > kThreads ||
-      tile < 32 || tile % 32 != 0 || nbuf < 1)
+  if (bad_group(tw, wpb) || tile < 32 || tile % 32 != 0 || nbuf < 1)
     return (int)cudaErrorInvalidValue;
-  const StagedLayout lay(kVelocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors, tile, nbuf);
+  const WorldLayout lay = sweep_layout(kVelocity ? kVelRows : kPosRows, n_bodies, n_contacts,
+                                       max_colors, tile, nbuf);
   const size_t smem = (size_t)wpb * lay.bytes;
   const cudaError_t e = allow_smem(iter_packed_kernel<kVelocity>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -803,6 +970,10 @@ int iter_packed_launch(float* packed, const int* perm, const int* color_start,
 
 }  // namespace
 
+// K1. `resident`: the resident path, `tile` lanes a row (>= n_contacts,
+// a multiple of 4), no scratch; otherwise the ring path over `scratch`
+// (W, 52, C) with `n_buffers` tiles of `tile` lanes. The shape comes from
+// ops/solve_middle.py `middle_shape`.
 extern "C" int solve_middle_launch(const float* blob, const int* perm,
                                    const int* color_start, const uint8_t* dyn_ab,
                                    const float* vel, const float* pos,
@@ -810,18 +981,32 @@ extern "C" int solve_middle_launch(const float* blob, const int* perm,
                                    float* pos_out, float* aux, float* scratch,
                                    int n_worlds, int n_bodies, int n_contacts,
                                    int max_colors, int velocity_iterations,
-                                   int position_iterations, float dt,
+                                   int position_iterations, int threads_per_world,
+                                   int resident, int tile, int n_buffers, float dt,
                                    void* stream) {
   if (n_worlds <= 0) return 0;
-  const size_t smem = (size_t)(6 * n_bodies + 6 * kChunk) * sizeof(float) +
-                      2 * kChunk * sizeof(int) + (size_t)n_bodies;
+  const int tw = threads_per_world;
+  if (bad_group(tw, 1) || tile < n_contacts * resident || tile % 4 != 0 || n_buffers < 1 ||
+      (!resident && (scratch == nullptr || tile % 32 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      middle_layout(resident, n_bodies, n_contacts, max_colors, tile, n_buffers).bytes;
+  const int vec = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(aux) % 16 == 0;
   const cudaError_t e = allow_smem(solve_middle_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  solve_middle_kernel<<<n_worlds, kThreads, smem, (cudaStream_t)stream>>>(
-      blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out, aux,
-      scratch, n_bodies, n_contacts, max_colors, velocity_iterations,
-      position_iterations, dt);
+  const int aligned = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  solve_middle_kernel<<<n_worlds, tw, smem, (cudaStream_t)stream>>>(
+      blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out, aux, scratch,
+      n_bodies, n_contacts, max_colors, velocity_iterations, position_iterations, dt, tw,
+      resident, tile, n_buffers, aligned, vec);
   return (int)cudaGetLastError();
+}
+
+// One world's shared memory in K1, as the kernel lays it out (the
+// card-only tests hold ops/solve_middle.py's copy of the sum to it).
+extern "C" int middle_world_smem_bytes(int resident, int n_bodies, int n_contacts,
+                                       int max_colors, int tile, int n_buffers) {
+  return middle_layout(resident, n_bodies, n_contacts, max_colors, tile, n_buffers).bytes;
 }
 
 extern "C" int empty_launch(void* stream) {
@@ -867,8 +1052,8 @@ extern "C" int pos_iter_packed_launch(float* packed, const int* perm,
 // card-only tests hold ops/solve_middle.py's copy of the sum to it).
 extern "C" int sweep_world_smem_bytes(int velocity, int n_bodies, int n_contacts,
                                       int max_colors, int tile, int n_buffers) {
-  return StagedLayout(velocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors,
-                      tile, n_buffers).bytes;
+  return sweep_layout(velocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors, tile,
+                      n_buffers).bytes;
 }
 
 extern "C" int unpack_packed_launch(const float* packed, const int* perm,

@@ -8,8 +8,9 @@ exactly the same arguments:
   * `solve_middle_plain`: PyTorch, color by color, modeled on the JAX
     package's XLA chunk path (world.py:702-848). It serves CPU tensors and
     is the reference the kernel is held against.
-  * the CUDA kernel `csrc/solve_middle.cu`, one thread block per world.
-    `solve_middle` launches it for CUDA tensors, and never falls back.
+  * the CUDA kernel `csrc/solve_middle.cu` (K1), a group of threads per
+    world. `solve_middle` launches it for CUDA tensors, and never falls
+    back.
 
 Argument contract (all tensors contiguous, on one device):
 
@@ -49,10 +50,14 @@ CPU tensors:
 `solve_middle_plain` is the composition of the four plain versions with
 `integrate_positions` between the velocity and the position sweeps.
 
-The sweep kernels stage a world's rows of `packed` in shared memory and
-give a world its own group of threads; `sweep_shape` picks that launch
-shape (threads a world, worlds a block, tile, ring depth) and
-`unpack_shape` the unpack kernel's, from the static shapes alone.
+K1 and the sweep kernels stage a world's rows of the packed table in
+shared memory and give a world its own group of threads. K1 keeps a
+world's whole table there for the call where it fits a block (the
+resident path) and otherwise walks a global scratch table through a
+ring of tiles, as the sweep kernels do. `middle_shape` picks K1's launch
+shape, `sweep_shape` the sweeps' (threads a world, worlds a block, tile,
+ring depth) and `unpack_shape` the unpack kernel's, from the static
+shapes alone.
 
 Semantics: within a color the lanes are conflict-free on dynamic bodies,
 so a color is one parallel pass and only dynamic endpoints are written.
@@ -130,7 +135,7 @@ solve_middle.launches = 0
 
 # C entry points of csrc/solve_middle.cu: (pointers, ints, a float after
 # the ints); every one ends with the stream and returns a CUDA error code
-_ENTRIES = {"solve_middle_launch": (11, 6, True),
+_ENTRIES = {"solve_middle_launch": (11, 10, True),
             "pack_packed_launch": (4, 3, False),
             "vel_iter_packed_launch": (6, 8, False),
             "pos_iter_packed_launch": (6, 8, False),
@@ -149,9 +154,10 @@ def _entry(name):
 
 def _call(name, device, pointers, ints, dt=None):
     """Launch one kernel of csrc/solve_middle.cu on PyTorch's current
-    stream of `device`; raises when the launch is refused."""
+    stream of `device` (None: a null pointer); raises when the launch is
+    refused."""
     fn = _entry(name)
-    args = [t.data_ptr() for t in pointers]
+    args = [None if t is None else t.data_ptr() for t in pointers]
     args += ints
     if dt is not None:
         args.append(float(dt))
@@ -168,17 +174,19 @@ def _call(name, device, pointers, ints, dt=None):
 def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
             velocity_iterations, position_iterations):
     nw, _, nc = blob.shape
-    nb = vel.shape[-1]
+    nb, mc = vel.shape[-1], color_start.shape[-1] - 1
+    shape = middle_shape(nb, nc, mc)
+    _need_smem("solve_middle", shape.smem_bytes, nb, nc)
     vel_out = torch.empty_like(vel)
     pos_out = torch.empty_like(pos)
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=blob.device)
-    scratch = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
-                          device=blob.device)
+    scratch = None if shape.resident else torch.empty(
+        (nw, PACKED_ROWS, nc), dtype=torch.float32, device=blob.device)
     _call("solve_middle_launch", blob.device,
           (blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out,
            aux, scratch),
-          (nw, nb, nc, color_start.shape[-1] - 1, velocity_iterations,
-           position_iterations), dt)
+          (nw, nb, nc, mc, velocity_iterations, position_iterations,
+           shape.threads_per_world, int(shape.resident), shape.tile, shape.n_buffers), dt)
     solve_middle.launches += 1
     return vel_out, pos_out, aux
 
@@ -220,6 +228,7 @@ class SweepShape(NamedTuple):
 
 
 VEL_ROWS, POS_ROWS = 36, 23   # table rows a velocity / a position sweep reads
+RESIDENT_ROWS = 37            # K1's resident table: the velocity rows and min_sep
 SMEM_BLOCK_MAX = 232448       # shared memory a block may take on an H100
 _SMEM_SHARE = SMEM_BLOCK_MAX // 2    # leave room for a second block on the SM
 
@@ -228,14 +237,35 @@ def _align16(x):
     return -(-x // 16) * 16
 
 
-def _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers):
-    """One world's shared memory in a sweep kernel (`StagedLayout` in
-    csrc/solve_middle.cu): the row buffers, the overflow chunk's deltas
-    and endpoints, the body plane, color_start, the dynamic-endpoint flags
-    in packed order."""
+def _world_bytes(row_floats, planes, n_bodies, n_contacts, max_colors):
+    """One world's shared memory in K1 or a sweep kernel (`WorldLayout`
+    in csrc/solve_middle.cu): the staged rows, the overflow chunk's deltas
+    and endpoints, the body planes (K1: two, and the movable flags),
+    color_start, the dynamic-endpoint flags in packed order."""
     chunk = min(CK, -(-n_contacts // 32) * 32)
-    return (n_buffers * rows * tile * 4 + 8 * chunk * 4 + _align16(12 * n_bodies)
+    return (_align16(4 * row_floats) + 8 * chunk * 4 + planes * _align16(12 * n_bodies)
+            + (_align16(n_bodies) if planes > 1 else 0)
             + _align16(4 * (max_colors + 1)) + _align16(n_contacts))
+
+
+def _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers):
+    """A sweep kernel's world: `n_buffers` tiles of `rows` rows."""
+    return _world_bytes(n_buffers * rows * tile, 1, n_bodies, n_contacts, max_colors)
+
+
+def _middle_world_bytes(resident, n_bodies, n_contacts, max_colors, tile, n_buffers):
+    """K1's world: 37 resident rows of `tile` lanes, or the ring's tiles
+    of the velocity rows, which then hold perm's inverse (C ints)."""
+    rows = (RESIDENT_ROWS * tile if resident
+            else max(n_buffers * VEL_ROWS * tile, n_contacts))
+    return _world_bytes(rows, 2, n_bodies, n_contacts, max_colors)
+
+
+def _need_smem(fn, smem_bytes, n_bodies, n_contacts):
+    if smem_bytes > SMEM_BLOCK_MAX:
+        raise ValueError(f"{fn}: a world of {n_bodies} bodies and {n_contacts} contact "
+                         f"slots needs {smem_bytes} B of shared memory, above the "
+                         f"card's {SMEM_BLOCK_MAX} B a block")
 
 
 @functools.lru_cache(maxsize=64)
@@ -255,6 +285,38 @@ def sweep_shape(n_bodies, n_contacts, max_colors, rows=VEL_ROWS) -> SweepShape:
     while 2 * wpb <= 8 and 2 * wpb * tw <= CK and 2 * wpb * world <= _SMEM_SHARE:
         wpb *= 2
     return SweepShape(tw, wpb, tile, n_buffers, wpb * world)
+
+
+class MiddleShape(NamedTuple):
+    """How K1 lays a batch out on the card: a block a world."""
+    threads_per_world: int    # a multiple of 32
+    resident: bool            # the whole table in shared memory for the call
+    tile: int                 # resident: lanes a row (>= C); ring: a tile's lanes
+    n_buffers: int            # ring: tiles in flight (resident: 1)
+    smem_bytes: int           # dynamic shared memory a block (a world)
+
+
+@functools.lru_cache(maxsize=64)
+def middle_shape(n_bodies, n_contacts, max_colors) -> MiddleShape:
+    """K1's launch shape, from the static shapes alone (no device read).
+    A world's table stays resident (37 rows of C lanes, C rounded up to 4)
+    where the world fits a block's shared memory; otherwise it walks the
+    ring in tiles of the velocity rows, two as wide as a block's shared
+    memory allows (a color split at a tile border costs a pass). A world
+    gets C / 2 threads between one warp and CK (the pack's and the
+    unpack's copies spread over them; a pass needs about C / 10) and a
+    block of its own: on the card, several worlds a block were slower."""
+    tw = min(CK, max(32, -(-(n_contacts // 2) // 32) * 32))
+    cap = -(-n_contacts // 4) * 4
+    world = _middle_world_bytes(True, n_bodies, n_contacts, max_colors, cap, 1)
+    if world <= SMEM_BLOCK_MAX:
+        return MiddleShape(tw, True, cap, 1, world)
+    rest = _world_bytes(0, 2, n_bodies, n_contacts, max_colors)
+    widest = (SMEM_BLOCK_MAX - rest) // (2 * VEL_ROWS * 4) // 32 * 32
+    tile = min(widest, -(-n_contacts // 32) * 32)
+    n_buffers = 1 if n_contacts <= tile else 2
+    world = _middle_world_bytes(False, n_bodies, n_contacts, max_colors, tile, n_buffers)
+    return MiddleShape(tw, False, tile, n_buffers, world)
 
 
 N_SMS = 132                   # streaming multiprocessors of an H100
@@ -285,10 +347,7 @@ def _launch_iter(name, rows, packed, perm, color_start, dyn_ab, body):
     nw, _, nc = packed.shape
     nb, mc = body.shape[-1], color_start.shape[-1] - 1
     shape = sweep_shape(nb, nc, mc, rows)
-    if shape.smem_bytes > SMEM_BLOCK_MAX:
-        raise ValueError(f"{name}: a world of {nb} bodies and {nc} contact slots "
-                         f"needs {shape.smem_bytes} B of shared memory, above "
-                         f"the card's {SMEM_BLOCK_MAX} B a block")
+    _need_smem(name, shape.smem_bytes, nb, nc)
     out = torch.empty_like(body)
     _call(name, packed.device, (packed, perm, color_start, dyn_ab, body, out),
           (nw, nb, nc, mc, *shape[:4]))

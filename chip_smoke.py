@@ -48,15 +48,21 @@ on any failure:
      (events); and the bound: the bytes that call must move (K1: the
      solved lanes' rows; K2: the active lanes' rows and each proxy's own
      vertices) over the HBM rate, or its f32 operations over the f32
-     peak, the larger;
+     peak, the larger. K1 is also timed on the device at 64 x
+     pyramid(10), 16 x pyramid(44) and 4096 x pyramid(10) (the main
+     path's last-step inputs, each world eight times), each with the path
+     K1 took (resident or ring), its launch shape and the chain of passes
+     its busiest world runs; and at 512 x pyramid(10) without sweeps and
+     with each kind of sweep alone;
   9. the sandwich (K3 pack, K4 velocity sweep, K5 position sweep, K6
      unpack) against K1 on joint-free batches: on phase 2's captured
      inputs K3 -> 8 x K4 -> integrate_positions -> 3 x K5 -> K6 gives
-     K1's three outputs, to the bit on 64 x pyramid(10) and on
-     16 x pyramid(44) (whose worlds outgrow K4's shared-memory buffers,
-     so its ring turns) and within phase 2's tolerance on the
-     max_colors=3 inputs (the overflow chunk's parallel apply); the way
-     K4 took each case is printed;
+     K1's three outputs to the bit (all run one sweep implementation) on
+     64 x pyramid(10) (K1's resident path), on 16 x pyramid(44) (whose
+     worlds outgrow K4's shared-memory buffers, so its ring turns, and
+     K1 takes its ring path) and on the max_colors=3 inputs (the
+     overflow chunk's parallel apply); the way K1 and K4 took each case
+     is printed;
  10. joint worlds, the sandwich's main path: 256 x tumbler(200) and
      512 x chain_links(30) for 120 and 180 steps (the chain's tip reaches
      the ground at step 134), counting K3-K6 launches
@@ -74,7 +80,8 @@ on any failure:
      the joint impulses to 1e-4, awake equal);
  12. K3-K6: the times of phase 8 on the tumbler's recorded inputs, each
      one's bound (the solved lanes' rows) and, for K3 and K6, the device
-     time of the PyTorch calls that compute the same function.
+     time of the PyTorch calls that compute the same function; K4 and K5
+     also on the chain's busiest step.
 
 The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
@@ -582,6 +589,29 @@ def sweep_path(args):
             f"{sm.unpack_shape(*perm.shape)}"), tiles > shape.n_buffers, overflow
 
 
+def middle_path(args):
+    """Which way K1 takes these inputs: its path and launch shape, and the
+    chain of passes its busiest world runs: a sweep passes through each
+    non-empty color (each chunk of the overflow color), once more for
+    each tile border that splits one on the ring path."""
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    blob, perm, cs, _, vel, _, _, _, vi, pi = args
+    shape = sm.middle_shape(vel.shape[-1], perm.shape[-1], cs.shape[-1] - 1)
+    row = cs[int(cs[:, -1].argmax())].tolist()
+    total, mc = row[-1], len(row) - 1
+    tile = perm.shape[-1] if shape.resident else shape.tile
+    spans = [(row[c], row[c + 1]) for c in range(mc - 1)]
+    spans += [(ch, min(ch + sm.CK, row[mc])) for ch in range(row[mc - 1], row[mc], sm.CK)]
+    passes = sum(max(a, t0) < min(b, t0 + tile) for t0 in range(0, total, tile)
+                 for a, b in spans)
+    colors = sum(a < b for a, b in spans[:mc - 1]) + (row[mc] > row[mc - 1])
+    return (f"{'resident' if shape.resident else 'ring'} path, "
+            f"a block of {shape.threads_per_world} threads a world"
+            f"{'' if shape.resident else f', tiles of {tile} lanes'}; busiest world: "
+            f"{total} lanes in {colors} non-empty colors, {passes} passes a sweep x "
+            f"{vi + pi} sweeps = {passes * (vi + pi)} passes"), shape.resident
+
+
 def sandwich_vs_k1(args, label, exact):
     """K3 -> vi x K4 -> integrate_positions -> pi x K5 -> K6 against K1 on
     the inputs of a joint-free batch; returns the max abs error. Both
@@ -605,7 +635,8 @@ def sandwich_vs_k1(args, label, exact):
     err = {"pos": (pos - k_pos).abs().max().item(), "vel": (vel - k_vel).abs().max().item(),
            "aux": (aux - k_aux).abs().max().item()}
     print(f"phase 9 sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
-          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; {sweep_path(args)[0]}")
+          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; K1: {middle_path(args)[0]}; "
+          f"K4: {sweep_path(args)[0]}")
     if err["pos"] > 1e-5 or err["vel"] > 1e-4 or err["aux"] > 1e-4:
         raise AssertionError(f"{label}: the sandwich disagrees with K1: {err}")
     if exact and max(err.values()) != 0.0:
@@ -886,10 +917,23 @@ def main() -> int:
     k1_m = measure(sm.solve_middle, args_main)
     k1_plain = time_call(sm.solve_middle_plain, args_main, reps=3)
     print(f"phase 8 solve_middle [512 x pyramid(10)]: {show(k1_m, k1_bytes(args_main))}; "
-          f"plain {k1_plain:.4f} ms per call")
-    for label, args in (("64 x pyramid(10)", args10), ("16 x pyramid(44)", args44)):
+          f"plain {k1_plain:.4f} ms per call; {middle_path(args_main)[0]}")
+    args4096 = tuple(torch.cat([a] * 8).contiguous() if torch.is_tensor(a) else a
+                     for a in args_main)
+    for label, args in (("64 x pyramid(10)", args10), ("16 x pyramid(44)", args44),
+                        ("4096 x pyramid(10), the main path's inputs x 8", args4096)):
         print(f"phase 8 solve_middle [{label}]: "
-              f"{show(measure(sm.solve_middle, args, profiler=False), k1_bytes(args))}")
+              f"{show(measure(sm.solve_middle, args, profiler=False), k1_bytes(args))}; "
+              f"{middle_path(args)[0]}")
+    del args4096
+    # what K1's time is made of: the same call without sweeps (pack,
+    # integrate, unpack, launch), with the velocity sweeps alone and with
+    # the position sweeps alone
+    split = {vp: device_time(sm.solve_middle, (*args_main[:8], *vp))
+             for vp in ((0, 0), (MAIN["velocity_iterations"], 0),
+                        (0, MAIN["position_iterations"]))}
+    print("phase 8 solve_middle [512 x pyramid(10)] split, device ms by (velocity, "
+          "position) iterations: " + ", ".join(f"{k}: {v:.4f}" for k, v in split.items()))
     solved = int(args_main[2][:, -1].sum())
     k1_bound = bound(k1_bytes(args_main),
                      solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
@@ -914,14 +958,16 @@ def main() -> int:
 
     lap(8)
     # ---- 9. the sandwich against K1 on a joint-free batch
-    if not sweep_path(args44)[1]:
-        raise AssertionError("16 x pyramid(44) does not turn K4's ring")
+    if not sweep_path(args44)[1] or middle_path(args44)[1]:
+        raise AssertionError("16 x pyramid(44) does not turn K4's ring or take K1's ring path")
+    if not middle_path(args10)[1]:
+        raise AssertionError("64 x pyramid(10) does not take K1's resident path")
     if sweep_path(args_ovf)[2] <= 0:
         raise AssertionError("the max_colors=3 inputs have no overflow lane")
     err_sw_k1 = max(
         sandwich_vs_k1(args10, "64 x pyramid(10)", exact=True),
         sandwich_vs_k1(args44, "16 x pyramid(44)", exact=True),
-        sandwich_vs_k1(args_ovf, "64 x pyramid(10), max_colors=3", exact=False))
+        sandwich_vs_k1(args_ovf, "64 x pyramid(10), max_colors=3", exact=True))
 
     lap(9)
     # ---- 10. joint worlds: the sandwich's main path
@@ -944,7 +990,7 @@ def main() -> int:
     err_sw, first_t = compare_sandwich(rec_t.busiest(), "256 x tumbler(200), busiest step")
     del rec_t
     launches_c, rec_c = run_joint_scene("chain_links", 30, 512, 180, dev, planks_above)
-    err_c, _ = compare_sandwich(rec_c.busiest(), "512 x chain_links(30), busiest step")
+    err_c, first_c = compare_sandwich(rec_c.busiest(), "512 x chain_links(30), busiest step")
     del rec_c
     err_sw = {k: max(v, err_c[k], err_sw_k1) for k, v in err_sw.items()}
 
@@ -987,6 +1033,16 @@ def main() -> int:
               f"({bnd[1]}: {sw_bytes[name]} B; device time at {100 * bnd[0] / m['ms']:.2f}% "
               f"of it, {m['ms'] / floor['ms']:.2f} x the launch floor); library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms on the device'}")
+    sw_bytes_c, solved_c = sandwich_bytes(first_c)
+    for name in ("vel_iter_packed", "pos_iter_packed"):
+        fn, plain = getattr(sm, name), getattr(sm, name + "_plain")
+        m = measure(fn, first_c[name], profiler=False)
+        bnd = bound(sw_bytes_c[name], solved_c * (K1_OPS_VEL if name[0] == "v" else K1_OPS_POS))
+        print(f"phase 12 {name} [512 x chain_links(30), busiest step, {solved_c} solved "
+              f"lanes; {sweep_path(first_c[name])[0]}]: {show(m, sw_bytes_c[name])}; "
+              f"plain {time_call(plain, first_c[name], reps=3):.4f} ms per call; bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}; device time at {100 * bnd[0] / m['ms']:.2f}% of "
+              f"it, {m['ms'] / floor['ms']:.2f} x the launch floor)")
     lap(12)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 

@@ -6,17 +6,19 @@ package and the C++ goldens.
     24 bodies goes through `init_joints` -> `warm_start_joints` -> two
     `solve_joint_velocity` -> two `solve_joint_position` ->
     `store_joint_impulses` in both packages; body data, stored impulses
-    and limit states come from a numpy seed. The JAX functions run
-    un-jitted, once, in a module fixture; each case checks its variant's
+    and limit states come from a numpy seed. The JAX functions run once,
+    jitted together, in a module fixture; each case checks its variant's
     joints. Tolerance: atol 1e-5 (both run the same float32 operations in
-    the same order; only sin/cos/sqrt/divide may differ in the last bit);
+    the same order; sin/cos/sqrt/divide, and XLA's fusion of the jitted
+    sequence, may differ in the last bits);
     limit states and the per-body convergence flags are equal;
   * builder, state bridge and scenes: field-by-field equality with the JAX
     package, the numpy round trip, refusal of an unported joint type;
   * forbidden pairs: jointed bodies with collide_connected=False make no
     pair, and the pair table equals the JAX package's;
   * the port alone against the C++ goldens at the bounds of the JAX
-    package's own tests (tests/test_step.py).
+    package's own tests (tests/test_step.py), the four rolled as one
+    batch of worlds.
 """
 
 import dataclasses
@@ -38,15 +40,26 @@ from box2d_mt_tpu_torch import joints as tjoints
 from box2d_mt_tpu_torch import world as tworld
 from box2d_mt_tpu_torch.joints import solver as tsolver
 from box2d_mt_tpu_torch.models import scenes as tscenes
-from box2d_mt_tpu_torch.state import (JOINT_BLOCKS, replicate, state_from_numpy,
-                                      to_numpy)
+from box2d_mt_tpu_torch.state import (JOINT_BLOCKS, map_leaves, replicate,
+                                      state_from_numpy, to_numpy)
 
 from conftest import GOLDEN
 
 DT = 1.0 / 60.0
 NB = 24          # bodies: slot 0 static, the rest dynamic
 MAX_COLORS = 16
+DT_RATIO = 0.9
 ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """These tensors are a few worlds wide: PyTorch's intra-op threads cost
+    more than they give, and workers running side by side share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _solver_world(seed=0):
@@ -126,17 +139,15 @@ def _solver_world(seed=0):
     return dataclasses.replace(st, bodies=bodies, joints=joints)
 
 
-@pytest.fixture(scope="module")
-def solved():
-    jst = _solver_world()
-    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
-    dt_ratio = 0.9
-
+def _jax_solve(jst):
+    """The JAX package's joint passes on `jst`, the sequence the port's is
+    held against: init, warm start, two velocity and two position passes,
+    store."""
     jb = jst.bodies
     jdata, jstate = jsolver.init_joints(
         jst.joints, jb, jb.awake, jb.v, jb.w, jnp.float32(DT),
-        jnp.float32(dt_ratio), True, NB, MAX_COLORS)
-    init_state = jax.tree.map(np.asarray, jstate)
+        jnp.float32(DT_RATIO), True, NB, MAX_COLORS)
+    init_state = jstate
     v, w = jsolver.warm_start_joints(jdata, jstate, jb.v, jb.w)
     for _ in range(2):
         jstate, v, w = jsolver.solve_joint_velocity(jdata, jstate, v, w,
@@ -144,19 +155,23 @@ def solved():
     c, a = jb.c, jb.a
     for _ in range(2):
         c, a, jok = jsolver.solve_joint_position(jdata, jstate, c, a, MAX_COLORS)
-    jax_out = types.SimpleNamespace(
-        init_state=init_state, state=jax.tree.map(np.asarray, jstate),
-        v=np.asarray(v), w=np.asarray(w), c=np.asarray(c), a=np.asarray(a),
-        jok=np.asarray(jok),
-        joints=jax.tree.map(np.asarray, jsolver.store_joint_impulses(jst.joints, jstate)),
-        color={k: np.asarray(d.com.color) for k, (_, d) in jdata.items()},
-        active={k: np.asarray(d.com.active) for k, (_, d) in jdata.items()})
+    return dict(init_state=init_state, state=jstate, v=v, w=w, c=c, a=a, jok=jok,
+                joints=jsolver.store_joint_impulses(jst.joints, jstate),
+                color={k: d.com.color for k, (_, d) in jdata.items()},
+                active={k: d.com.active for k, (_, d) in jdata.items()})
+
+
+@pytest.fixture(scope="module")
+def solved():
+    jst = _solver_world()
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
+    jax_out = types.SimpleNamespace(**jax.tree.map(np.asarray, jax.jit(_jax_solve)(jst)))
 
     tb = tst.bodies
     dt = float(np.float32(DT))
     tdata, tstate = tsolver.init_joints(
         tst.joints, tb, tb.awake, tb.v, tb.w, dt,
-        torch.full((1,), dt_ratio), True, NB, MAX_COLORS)
+        torch.full((1,), DT_RATIO), True, NB, MAX_COLORS)
     t_init = tstate
     tv, tw = tsolver.warm_start_joints(tdata, tstate, tb.v, tb.w)
     for _ in range(2):
@@ -334,22 +349,51 @@ _GOLDENS = {
     "weld_240": (lambda: tscenes.weld_pendulum(device="cpu"), 3, 2e-2),
     "weldsoft_240": (lambda: tscenes.weld_pendulum(soft=True, device="cpu"), 3, 2e-2),
 }
+# the capacities of the largest golden scene: every golden is frozen with
+# them, so that the four roll as one batch of worlds; the empty slots take
+# no part (each world's worst error equals its roll alone)
+_GOLDEN_CAPACITY = dict(body_capacity=4, fixture_capacity=2, contact_capacity=64,
+                        joint_capacity={"revolute": 1, "prismatic": 1, "weld": 1})
+
+
+def _cat_worlds(states):
+    """One batch of the worlds of `states` (equal static shapes)."""
+    leaves = [[] for _ in states]
+    for out, st in zip(leaves, states):
+        map_leaves(lambda t: out.append(t) or t, st)
+    it = iter(zip(*leaves))
+    return map_leaves(lambda _: torch.cat(next(it)), states[0])
+
+
+@pytest.fixture(scope="module")
+def golden_worst():
+    """Each golden's worst position/angle error over its 240 steps against
+    the C++ trace (bodies listed in reverse creation order), and whether
+    every step was free of color and pair overflow."""
+    freeze = tworld.WorldBuilder.freeze
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tworld.WorldBuilder, "freeze",
+                   lambda self, **kw: freeze(self, **_GOLDEN_CAPACITY, **kw))
+        st = _cat_worlds([build() for build, _, _ in _GOLDENS.values()])
+    refs = [[json.loads(line) for line in open(GOLDEN / f"{name}.jsonl")]
+            for name in _GOLDENS]
+    worst, clean = [0.0] * len(_GOLDENS), True
+    for i in range(240):
+        st, ev = tworld.step_batched(st, 1 / 60, velocity_iterations=8, position_iterations=3)
+        p, a = st.bodies.xf_p.numpy(), st.bodies.a.numpy()
+        for w, ((_, n_bodies, _), ref) in enumerate(zip(_GOLDENS.values(), refs)):
+            for j, rb in enumerate(ref[i]["bodies"]):
+                k = n_bodies - 1 - j
+                worst[w] = max(worst[w], abs(p[w, k, 0] - rb[0]), abs(p[w, k, 1] - rb[1]),
+                               abs(a[w, k] - rb[2]))
+        clean &= int(ev.color_overflow.max()) == 0 and int(ev.pair_overflow.max()) == 0
+    return {name: (worst[w], clean) for w, name in enumerate(_GOLDENS)}
 
 
 @pytest.mark.parametrize("golden", list(_GOLDENS))
-def test_port_meets_cpp_golden(golden):
-    """240 steps against the C++ trace (bodies listed in reverse creation
-    order), at the JAX package's own bound for the scene."""
-    build, n_bodies, bound = _GOLDENS[golden]
-    st = build()
-    ref = [json.loads(line) for line in open(GOLDEN / f"{golden}.jsonl")]
-    worst = 0.0
-    for i in range(240):
-        st, ev = tworld.step(st, 1 / 60, velocity_iterations=8, position_iterations=3)
-        p, a = st.bodies.xf_p[0].numpy(), st.bodies.a[0].numpy()
-        for j, rb in enumerate(ref[i]["bodies"]):
-            k = n_bodies - 1 - j
-            worst = max(worst, abs(p[k][0] - rb[0]), abs(p[k][1] - rb[1]),
-                        abs(a[k] - rb[2]))
-        assert int(ev.color_overflow) == 0 and int(ev.pair_overflow) == 0
-    assert worst < bound
+def test_port_meets_cpp_golden(golden_worst, golden):
+    """240 steps against the C++ trace, at the JAX package's own bound for
+    the scene."""
+    worst, clean = golden_worst[golden]
+    assert clean
+    assert worst < _GOLDENS[golden][2]

@@ -10,15 +10,19 @@ bottom row reaches the ground, and of fast boxes thrown at a thin wall.
 The four sandwich kernels get the inputs of one step of 8 x tumbler(40)
 (a joint world, after the boxes have landed), recorded through the
 `sandwich=` hook, and the solve middle's inputs of joint-free pyramids at
-every launch shape of the sweeps and the unpack: 128 contact slots
-(several worlds a block, the last block partly filled), 1024, 4096 (more
-lanes than the shared-memory buffers hold, so the ring turns), an
-overflow color of several chunks, a world without a solved lane, and a
-slot count that is no multiple of 4 (rows not 16-byte aligned)."""
+every launch shape of the solve middle, the sweeps and the unpack: 128
+contact slots (several worlds a block, the last block partly filled),
+1024, 4096 (more lanes than the shared-memory buffers hold, so the ring
+turns, and the solve middle takes its ring path), an overflow color of
+several chunks, a world without a solved lane, and slot counts that are
+no multiple of 4 (rows not 16-byte aligned), on both of the solve
+middle's paths. The position sweep also gets hand-built lanes of each
+manifold type, and angles past sinf's fast range."""
 
 import ctypes
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -209,6 +213,7 @@ SHAPE_CASES = {
     "c128_empty_world": (7, 6, 30, 16, "empty_world"),
     "c130_unaligned": (7, 6, 30, 16, "unaligned"),
     "c258_unaligned_overflow": (10, 3, 30, 3, "unaligned"),
+    "c4098_unaligned_ring": (44, 2, 60, 16, "unaligned"),
 }
 
 
@@ -252,14 +257,37 @@ def _sandwich(blob, perm, color_start, dyn_ab, vel, pos, movable, dt, vi, pi):
 
 
 @pytest.mark.gpu
+def test_solve_middle_kernel_matches_plain_at_every_shape(middle_args):
+    """K1 against its plain version at every launch shape, on its
+    resident path up to 1024 slots and its ring path beyond."""
+    name, args = middle_args
+    blob, perm, color_start = args[:3]
+    nc, nb = blob.shape[2], args[4].shape[2]
+    shape = sm.middle_shape(nb, nc, color_start.shape[1] - 1)
+    assert shape.resident == (nc <= 1024)
+    launches = sm.solve_middle.launches
+    k_vel, k_pos, k_aux = sm.solve_middle(*args)
+    p_vel, p_pos, p_aux = sm.solve_middle_plain(*args)
+    torch.cuda.synchronize()
+    assert sm.solve_middle.launches == launches + 1
+    torch.testing.assert_close(k_pos, p_pos, rtol=0, atol=1e-5)
+    torch.testing.assert_close(k_vel, p_vel, rtol=0, atol=1e-4)
+    torch.testing.assert_close(k_aux[:, :4], p_aux[:, :4], rtol=0, atol=1e-4)
+    slop = -3.0 * settings.LINEAR_SLOP
+    assert torch.equal(k_aux[:, 4] >= slop, p_aux[:, 4] >= slop)
+
+
+@pytest.mark.gpu
 def test_sandwich_kernels_equal_solve_middle_kernel(middle_args):
     """K3 -> 8 x K4 -> integrate -> 3 x K5 -> K6 is K1 to the bit at every
-    launch shape: both apply an overflow chunk's deltas in lane order."""
+    launch shape, on both of K1's paths: all run one sweep implementation
+    and apply an overflow chunk's deltas in lane order."""
     name, args = middle_args
     blob, perm, color_start = args[:3]
     nc, nb = blob.shape[2], args[4].shape[2]
     lanes = color_start[:, -1]
     shape = sm.sweep_shape(nb, nc, color_start.shape[1] - 1)
+    assert sm.middle_shape(nb, nc, color_start.shape[1] - 1).resident == (nc <= 1024)
     assert int(lanes.sum()) > 20
     if name.startswith("c128"):
         assert shape.worlds_per_block > 1 and blob.shape[0] % shape.worlds_per_block
@@ -318,3 +346,89 @@ def test_sweep_shared_memory_matches_the_kernels_layout(n_bodies, n_contacts):
         shape = sm.sweep_shape(n_bodies, n_contacts, 16, rows)
         world = fn(velocity, n_bodies, n_contacts, 16, shape.tile, shape.n_buffers)
         assert shape.smem_bytes == shape.worlds_per_block * world
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bodies,n_contacts", [(32, 128), (64, 258), (256, 1024),
+                                                 (1024, 4096)])
+def test_middle_shared_memory_matches_the_kernels_layout(n_bodies, n_contacts):
+    """`middle_shape` budgets a block's shared memory with its own copy of
+    K1's layout sum, on the resident path and on the ring path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built only on a card")
+    from box2d_mt_tpu_torch.cuda_build import load
+    fn = load("solve_middle").middle_world_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    for mc in (3, 16):
+        shape = sm.middle_shape(n_bodies, n_contacts, mc)
+        assert shape.smem_bytes == fn(int(shape.resident), n_bodies, n_contacts, mc,
+                                      shape.tile, shape.n_buffers)
+
+
+# lanes of one manifold type each (circles 0, face A 1, face B 2), or of
+# all three mixed with angles far past 105615 rad, where sinf and cosf
+# leave their fast range reduction
+SYNTHETIC_LANES = ["circles", "face_a", "face_b", "mixed_large_angles"]
+
+
+def _synthetic_position_lanes(case, n_worlds=2, n_lanes=96, seed=7):
+    """A packed table of position lanes built by hand: lane l joins bodies
+    2l and 2l + 1 (both dynamic), so one color holds every lane; numpy
+    draws masses, local geometry, point counts, poses and angles."""
+    rng = np.random.default_rng(seed)
+    nb = 2 * n_lanes
+    table = np.zeros((n_worlds, sm.PACKED_ROWS, n_lanes), np.float32)
+    u = lambda lo, hi: rng.uniform(lo, hi, (n_worlds, n_lanes)).astype(np.float32)
+    table[:, 0] = 1.0
+    table[:, 1] = 2 * np.arange(n_lanes)
+    table[:, 2] = 2 * np.arange(n_lanes) + 1
+    table[:, 3] = rng.integers(1, 3, (n_worlds, n_lanes))
+    for k in (6, 7, 8, 9):                           # ma, mb, iA, iB
+        table[:, k] = u(0.1, 2.0)
+    for k in range(32, 36):                          # the two local points
+        table[:, k] = u(-0.5, 0.5)
+    ang = u(0.0, 2 * np.pi)
+    table[:, 36], table[:, 37] = np.cos(ang), np.sin(ang)   # local normal
+    table[:, 38], table[:, 39] = u(-0.5, 0.5), u(-0.5, 0.5)  # local point
+    table[:, 40], table[:, 41] = u(0.0, 0.1), u(0.0, 0.1)    # radii
+    for k in range(42, 46):                          # local centers
+        table[:, k] = u(-0.2, 0.2)
+    kinds = {"circles": 0, "face_a": 1, "face_b": 2}
+    table[:, 46] = (kinds[case] if case in kinds
+                    else rng.integers(0, 3, (n_worlds, n_lanes)))
+    pos = np.zeros((n_worlds, 3, nb), np.float32)
+    pos[:, 0:2] = rng.uniform(-0.3, 0.3, (n_worlds, 2, nb))
+    if case == "mixed_large_angles":
+        big = rng.uniform(1.1e5, 3e7, (n_worlds, nb)) * rng.choice([-1.0, 1.0], (n_worlds, nb))
+        pos[:, 2] = big
+        pos[0, 2, :8] = [0.0, -0.0, 105615.0, -105615.0, 105616.0, -105616.0,
+                         1e30, np.pi]
+    else:
+        pos[:, 2] = rng.uniform(-3.0, 3.0, (n_worlds, nb))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    perm = t(np.tile(np.arange(n_lanes, dtype=np.int32), (n_worlds, 1)))
+    color_start = t(np.tile(np.asarray([0, n_lanes, n_lanes], np.int32), (n_worlds, 1)))
+    dyn_ab = t(np.full((n_worlds, n_lanes), 3, np.uint8))
+    return t(table), perm, color_start, dyn_ab, t(pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SYNTHETIC_LANES)
+def test_position_sweep_kernel_matches_plain_on_synthetic_lanes(case):
+    """K5 evaluates only a lane's own manifold type and takes sine and
+    cosine from one sincosf: its positions and min_sep equal the plain
+    version's (torch.sin, torch.cos, all three types selected) to the bit,
+    through three sweeps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    table, perm, color_start, dyn_ab, pos = _synthetic_position_lanes(case)
+    k_table, p_table, k_pos, p_pos = table.clone(), table.clone(), pos, pos
+    for _ in range(3):
+        k_pos = sm.pos_iter_packed(k_table, perm, color_start, dyn_ab, k_pos)
+        p_pos = sm.pos_iter_packed_plain(p_table, perm, color_start, dyn_ab, p_pos)
+        torch.cuda.synchronize()
+        assert torch.equal(k_pos, p_pos)
+        assert torch.equal(k_table, p_table)
+    assert bool(torch.isfinite(k_pos).all())
+    assert float((k_pos - pos).abs().max()) > 1e-3           # the lanes moved bodies
+    assert float(k_table[:, sm.MIN_SEP_ROW].min()) < 0.0     # and found overlap

@@ -9,9 +9,10 @@
     run in interpret mode on the same small input (2 worlds), compared
     after unpack in slot order, since the packed layouts differ
     (tolerance: 1e-5 positions, 1e-4 velocities and impulses);
-  * the launch shapes the host picks for the sweep kernels (threads a
-    world, worlds a block, tile, ring depth, shared memory) and for the
-    unpack kernel, from the static shapes of the scenes the port runs;
+  * the launch shapes the host picks for the solve-middle kernel (its
+    resident or ring path), for the sweep kernels (threads a world, worlds
+    a block, tile, ring depth, shared memory) and for the unpack kernel,
+    from the static shapes of the scenes the port runs;
   * the whole step of ONE scene that holds all four ported joint types
     and boxes landing on an edge ground, built with both packages'
     builders, 2 worlds, 40 steps with continuous collision on, against the
@@ -42,6 +43,16 @@ from box2d_mt_tpu_torch.state import JOINT_BLOCKS, replicate, to_numpy
 
 DT = 1.0 / 60.0
 VI, PI = 8, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """These tensors are a few worlds wide: PyTorch's intra-op threads cost
+    more than they give, and workers running side by side share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _captured(max_colors):
@@ -181,6 +192,41 @@ def test_sweep_shape_from_static_shapes(n_bodies, n_contacts, rows, want):
     assert smem <= sm.SMEM_BLOCK_MAX
     if wpb > 1:
         assert 2 * smem <= sm.SMEM_BLOCK_MAX       # a second block fits the SM
+
+
+@pytest.mark.parametrize("n_bodies,n_contacts,want", [
+    (32, 128, (64, True, 128, 1)),        # pyramid(6)
+    (64, 256, (128, True, 256, 1)),       # pyramid(10)
+    (64, 258, (160, True, 260, 1)),       # a slot count off the tiers
+    (256, 1024, (256, True, 1024, 1)),    # pyramid(22)
+    (1024, 4096, (256, False, 672, 2)),   # pyramid(44): the ring
+], ids=["c128", "c256", "c258", "c1024", "c4096"])
+def test_middle_shape_from_static_shapes(n_bodies, n_contacts, want):
+    """K1's launch shape: a world's table stays resident in shared memory
+    while a world fits a block, and goes through the ring beyond; the
+    shared memory a block (a world) takes is the layout sum."""
+    shape = sm.middle_shape(n_bodies, n_contacts, 16)
+    tw, resident, tile, n_buffers, smem = shape
+    assert (tw, resident, tile, n_buffers) == want
+    assert tw % 32 == 0 and 32 <= tw <= sm.CK
+    world = sm._middle_world_bytes(resident, n_bodies, n_contacts, 16, tile, n_buffers)
+    assert smem == world and world % 16 == 0 and smem <= sm.SMEM_BLOCK_MAX
+    whole = sm._middle_world_bytes(True, n_bodies, n_contacts, 16, -(-n_contacts // 4) * 4, 1)
+    assert resident == (whole <= sm.SMEM_BLOCK_MAX)
+    if resident:
+        # 37 rows of the slots, both body planes and the movable flags
+        assert tile >= n_contacts and tile % 4 == 0
+        assert world >= 4 * (sm.RESIDENT_ROWS * n_contacts + 6 * n_bodies) + n_bodies
+    else:
+        # the tiles of the velocity rows, which then hold perm's inverse
+        assert tile % 32 == 0 and n_buffers * tile >= min(n_contacts, 2 * tile)
+        assert world >= 4 * max(n_buffers * sm.VEL_ROWS * tile, n_contacts)
+        wider = sm._middle_world_bytes(False, n_bodies, n_contacts, 16, tile + 32, n_buffers)
+        assert wider > sm.SMEM_BLOCK_MAX             # the widest tiles that fit
+    # pyramid(10)'s world by hand: rows, chunk deltas and endpoints, two
+    # body planes, movable flags, color_start, dyn flags
+    assert sm._middle_world_bytes(True, 64, 256, 16, 256, 1) == (
+        37 * 256 * 4 + 8 * 256 * 4 + 2 * 768 + 64 + 80 + 256)
 
 
 def test_unpack_shape_from_static_shapes():

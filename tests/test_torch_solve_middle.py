@@ -30,6 +30,16 @@ DT = 1.0 / 60.0
 VI, PI = 8, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """These tensors are a few worlds wide: PyTorch's intra-op threads cost
+    more than they give, and workers running side by side share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_pre_and_mids(states, kinds, mc):
     """The JAX step's phases up to and through the solve middle (fresh
     labels and colors, which equal the cached ones by construction)."""

@@ -28,6 +28,16 @@ DT = 1.0 / 60.0
 STEPS = 90
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """These tensors are a few worlds wide: PyTorch's intra-op threads cost
+    more than they give, and workers running side by side share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trajectories():
     jst = replicate_state(jscenes.pyramid(6), 2)

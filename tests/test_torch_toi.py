@@ -48,6 +48,16 @@ from test_pallas_toi import _build_lanes
 DT = 1.0 / 60.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """These tensors are a few worlds wide: PyTorch's intra-op threads cost
+    more than they give, and workers running side by side share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # --------------------------------------------------------------------------
 # lanes
 # --------------------------------------------------------------------------
