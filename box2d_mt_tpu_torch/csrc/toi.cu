@@ -1,4 +1,5 @@
-// Time of impact per lane (conservative advancement), one thread per lane.
+// Time of impact per lane (conservative advancement), one thread per
+// active lane, the active lanes compacted inside each block.
 //
 // Replaces the TPU kernel box2d_mt_tpu/ops/pallas_toi.py `_kernel` /
 // `time_of_impact_lanes` (:48-562): b2TimeOfImpact (b2TimeOfImpact.cpp:
@@ -8,7 +9,7 @@
 // outer loop of at most 20 trips. The argument contract and the plain
 // PyTorch version it is held against (ops/distance.py `time_of_impact`)
 // are in ops/toi.py; this file runs the same arithmetic in the same order,
-// and is built with --fmad=false and without fast math (sinf, cosf, IEEE
+// and is built with --fmad=false and without fast math (sincosf, IEEE
 // division and square root), so the two agree to the bit on a card.
 //
 // What bounds it on an H100: bytes, and they are tiny. An inactive lane
@@ -17,16 +18,30 @@
 // main path's busiest round (512 x pyramid(10): 16,384 lanes, 5,120
 // active boxes on the ground edge) that is 0.87 MB, 0.26 us at 3.35 TB/s,
 // above its ~0.1 us of f32 operations; chip_smoke.py computes it from each
-// run's lanes. The time goes to the loops' dependent latency and to
-// divergence, since each lane runs its own number of trips.
-// The design: one thread per lane, 128 threads a block. Both proxies'
-// vertices (32 floats), the simplex and the separating function live in
-// registers (every array is indexed by compile-time constants after
-// unrolling; a data-dependent vertex index is a select chain, not a local
-// memory load). Inputs are plane-major rows of L values, so a warp's loads
-// are coalesced. A thread exits as soon as its lane is done; there is no
-// block-wide early exit as in the Pallas kernel, whose 512-lane block ran
-// until every one of its lanes converged.
+// run's lanes. What the time goes to instead is latency: one lane's
+// dependent chain (sweep transforms, GJK and the separating-function
+// evaluations, each trip waiting on the last), and where a round's active
+// lanes are sparse (one of every 32 for fast boxes), warps that carry one
+// working lane and a second wave of such warps.
+// The design:
+// * A shorter chain: one sincosf a transform, and no transform computed
+//   twice at one time (the window's end once a lane, t1 once an outer
+//   trip, the root finder's time kept where it converged): 8 transforms
+//   instead of 16 for a main-path lane.
+// * Compaction inside a block, in the one launch, with no host read: a
+//   block of 12 warps an SM (one wave) walks a contiguous span of lanes,
+//   each warp appends its active lanes to a queue in shared memory (ballot
+//   and popc), and the warps solve the queue 32 lanes a warp. A span is at
+//   least 128 lanes and grows with the batch, so a sparse round fills
+//   whole warps: 1,024 lanes a block at 131,072 lanes, 32 fast boxes or
+//   320 pyramid lanes. A compaction across blocks (a global queue behind a
+//   grid-wide wait) was built and measured first: its atomics, fence and
+//   wait cost ~3 us a launch, more than the fuller warps gave back.
+// * Both proxies' vertices (32 floats), the simplex, the separating
+//   function and the held transforms live in registers (every array is
+//   indexed by compile-time constants after unrolling; a data-dependent
+//   vertex index is a select chain, not a local memory load). Inputs are
+//   plane-major rows of L values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +49,7 @@
 namespace {
 
 constexpr int kNV = 8;                 // b2_maxPolygonVertices
-constexpr int kThreads = 128;
+constexpr int kThreads = 384;          // 12 warps a block, one block an SM
 constexpr int kGjkIters = 20;
 constexpr int kToiIters = 20;
 constexpr int kPushIters = kNV;
@@ -97,15 +112,16 @@ __device__ __forceinline__ int support(const Proxy& P, float dx, float dy) {
   return best;
 }
 
-// b2Sweep::GetTransform (math2d.sweep_get_transform)
+// b2Sweep::GetTransform (math2d.sweep_get_transform); one sincosf gives
+// the same two values as sinf and cosf (the plain version's torch.sin and
+// torch.cos) with one range reduction
 __device__ __forceinline__ Xf sweep_xf(const Sweep& w, float beta) {
   const float ob = 1.0f - beta;
   const float posx = ob * w.c0x + beta * w.cx;
   const float posy = ob * w.c0y + beta * w.cy;
   const float ang = ob * w.a0 + beta * w.a;
   Xf x;
-  x.s = sinf(ang);
-  x.c = cosf(ang);
+  sincosf(ang, &x.s, &x.c);
   x.px = posx - (x.c * w.lcx - x.s * w.lcy);
   x.py = posy - (x.s * w.lcx + x.c * w.lcy);
   return x;
@@ -456,39 +472,46 @@ __device__ float sep_min(const SepFn& f, const Proxy& A, const Proxy& B, const X
 
 // ---- the lane --------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
-           const float* __restrict__ radius_a, const float* __restrict__ sweep_a,
-           const float* __restrict__ verts_b, const int* __restrict__ count_b,
-           const float* __restrict__ radius_b, const float* __restrict__ sweep_b,
-           const float* __restrict__ t_max_in, const uint8_t* __restrict__ active,
-           int* __restrict__ state_out, float* __restrict__ t_out_p, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const float t_max = t_max_in[lane];
-  if (!active[lane]) {
-    state_out[lane] = kUnknown;
-    t_out_p[lane] = t_max;
-    return;
-  }
+struct Lanes {
+  const float* __restrict__ verts_a;
+  const int* __restrict__ count_a;
+  const float* __restrict__ radius_a;
+  const float* __restrict__ sweep_a;
+  const float* __restrict__ verts_b;
+  const int* __restrict__ count_b;
+  const float* __restrict__ radius_b;
+  const float* __restrict__ sweep_b;
+  const float* __restrict__ t_max;
+  const uint8_t* __restrict__ active;
+  int* __restrict__ state;
+  float* __restrict__ t;
+  int n;
+};
+
+// b2TimeOfImpact for one active lane. Each transform is computed once for
+// each time it is needed at: the window's end once a lane, t1 once an
+// outer trip (it is also the push loop's first t1p, and an advance makes
+// the held t2 the next t1), and t2 again only where the root finder
+// converged at a new time.
+__device__ __forceinline__ void solve_lane(const Lanes& L, int lane) {
+  const size_t n = (size_t)L.n;
   Proxy A, B;
 #pragma unroll
   for (int r = 0; r < kNV; ++r) {
-    A.vx[r] = verts_a[(size_t)r * n + lane];
-    A.vy[r] = verts_a[(size_t)(kNV + r) * n + lane];
-    B.vx[r] = verts_b[(size_t)r * n + lane];
-    B.vy[r] = verts_b[(size_t)(kNV + r) * n + lane];
+    A.vx[r] = L.verts_a[r * n + lane];
+    A.vy[r] = L.verts_a[(kNV + r) * n + lane];
+    B.vx[r] = L.verts_b[r * n + lane];
+    B.vy[r] = L.verts_b[(kNV + r) * n + lane];
   }
-  A.count = count_a[lane];
-  B.count = count_b[lane];
-  const float* sa = sweep_a + lane;
-  const float* sb = sweep_b + lane;
-  const Sweep wa{sa[0], sa[(size_t)n], sa[2 * (size_t)n], sa[3 * (size_t)n],
-                 sa[4 * (size_t)n], sa[5 * (size_t)n], sa[6 * (size_t)n], sa[7 * (size_t)n]};
-  const Sweep wb{sb[0], sb[(size_t)n], sb[2 * (size_t)n], sb[3 * (size_t)n],
-                 sb[4 * (size_t)n], sb[5 * (size_t)n], sb[6 * (size_t)n], sb[7 * (size_t)n]};
+  A.count = L.count_a[lane];
+  B.count = L.count_b[lane];
+  const float* sa = L.sweep_a + lane;
+  const float* sb = L.sweep_b + lane;
+  const Sweep wa{sa[0], sa[n], sa[2 * n], sa[3 * n], sa[4 * n], sa[5 * n], sa[6 * n], sa[7 * n]};
+  const Sweep wb{sb[0], sb[n], sb[2 * n], sb[3 * n], sb[4 * n], sb[5 * n], sb[6 * n], sb[7 * n]};
+  const float t_max = L.t_max[lane];
 
-  const float total_radius = radius_a[lane] + radius_b[lane];
+  const float total_radius = L.radius_a[lane] + L.radius_b[lane];
   const float target = fmaxf(total_radius - kTargetMargin, kLinearSlop);
   const float hi = target + kTolerance;
   const float lo = target - kTolerance;
@@ -504,10 +527,11 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
     s.ib[k] = 0;
   }
   s.count = 1;
+  const Xf xam = sweep_xf(wa, t_max), xbm = sweep_xf(wb, t_max);
+  Xf xa1 = sweep_xf(wa, t1), xb1 = sweep_xf(wb, t1);   // at t1, then at t1p
 
   for (int it = 0; it < kToiIters && !done; ++it) {
-    const Xf xa = sweep_xf(wa, t1), xb = sweep_xf(wb, t1);
-    const float dist = gjk(A, B, xa, xb, s, s.count);
+    const float dist = gjk(A, B, xa1, xb1, s, s.count);
     const bool overlapped = dist <= 0.0f;
     const bool touching = !overlapped && dist < hi;
     if (overlapped) {
@@ -518,14 +542,14 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
       t_out = t1;
     }
     const bool done_o = overlapped || touching;
-    const SepFn f = sep_initialize(s, A, B, xa, xb);
+    const SepFn f = sep_initialize(s, A, B, xa1, xb1);
 
     // push-back loop over the deepest points
     float t1p = t1, t2 = t_max;
+    Xf xa2 = xam, xb2 = xbm;                          // at t2
     bool pdone = done_o, odone = false;
     for (int pk = 0; pk < kPushIters && !pdone; ++pk) {
       int wia, wib;
-      const Xf xa2 = sweep_xf(wa, t2), xb2 = sweep_xf(wb, t2);
       const float s2 = sep_min(f, A, B, xa2, xb2, wia, wib);
       const bool separated = s2 > hi;
       if (separated) {
@@ -534,7 +558,6 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
       }
       const bool advance = !separated && s2 > lo;
       const float t1_next = advance ? t2 : t1p;
-      const Xf xa1 = sweep_xf(wa, t1p), xb1 = sweep_xf(wb, t1p);
       const float s1 = sep_eval(f, A, B, wia, wib, xa1, xb1);
       const bool open = !separated && !advance;
       const bool failed = open && s1 < lo;
@@ -548,9 +571,13 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
       }
       odone = odone || separated || failed || touch1;
       pdone = separated || advance || failed || touch1;
+      if (advance) {
+        xa1 = xa2;
+        xb1 = xb2;
+      }
       if (!pdone) {
         // hybrid secant/bisection root find for sep(t) == target
-        float a1 = t1p, a2 = t2, s1r = s1, s2r = s2, t_root = t2;
+        float a1 = t1p, a2 = t2, s1r = s1, s2r = s2;
         for (int k = 0; k < kRootIters; ++k) {
           float t;
           if (k & 1) {
@@ -561,7 +588,9 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
           const Xf xa3 = sweep_xf(wa, t), xb3 = sweep_xf(wb, t);
           const float sr = sep_eval(f, A, B, wia, wib, xa3, xb3);
           if (fabsf(sr - target) < kTolerance) {
-            t_root = t;
+            t2 = t;
+            xa2 = xa3;
+            xb2 = xb3;
             break;
           }
           if (sr > target) {
@@ -572,7 +601,6 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
             s2r = sr;
           }
         }
-        t2 = t_root;
       }
       t1p = t1_next;
     }
@@ -583,8 +611,73 @@ toi_kernel(const float* __restrict__ verts_a, const int* __restrict__ count_a,
     state = kFailed;
     t_out = t1;
   }
-  state_out[lane] = state;
-  t_out_p[lane] = t_out;
+  L.state[lane] = state;
+  L.t[lane] = t_out;
+}
+
+// ---- the launch: active lanes compacted inside each block -----------------
+
+constexpr int kSegment = 8 * kThreads;  // lanes a block compacts at a time
+
+// A block walks its span of lanes [first, last) in segments: every thread
+// reads up to 8 lanes' `active` (writing an inactive lane's outputs at
+// once), each warp appends its active lanes to a queue in shared memory
+// (ballot, popc, one shared atomic), and the block's warps solve the
+// queue 32 lanes a warp. Nothing is shared between blocks.
+__global__ void __launch_bounds__(kThreads, 1) toi_kernel(const Lanes L, int span) {
+  __shared__ int queue[kSegment];
+  __shared__ int n_queued;
+  const int me = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << me) - 1u;
+  const int first = blockIdx.x * span;
+  const int last = min(first + span, L.n);
+  for (int seg = first; seg < last; seg += kSegment) {
+    if (threadIdx.x == 0) n_queued = 0;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kSegment / kThreads; ++k) {
+      const int lane = seg + k * kThreads + threadIdx.x;
+      const bool in = lane < last;
+      const bool on = in && L.active[lane];
+      if (in && !on) {
+        L.state[lane] = kUnknown;
+        L.t[lane] = L.t_max[lane];
+      }
+      const unsigned mask = __ballot_sync(~0u, on);
+      int base = 0;
+      if (me == 0 && mask) base = atomicAdd(&n_queued, __popc(mask));
+      base = __shfl_sync(~0u, base, 0);
+      if (on) queue[base + __popc(mask & below)] = lane;
+    }
+    __syncthreads();
+    const int n_active = n_queued;
+    for (int i = 32 * warp + me; i - me < n_active; i += kThreads) {
+      if (i < n_active) solve_lane(L, queue[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// The grid for n lanes: at most as many blocks as the SMs hold at once (one
+// wave), each a contiguous span of lanes, a multiple of 32 and at least
+// 128, so that a sparse round's active lanes fill whole warps.
+int grid(int n_lanes, int* span) {
+  static int resident[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return -1;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, toi_kernel, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return -1;
+    resident[dev] = per_sm * sms;
+  }
+  if (resident[dev] <= 0) return -1;
+  int blocks = min(resident[dev], (n_lanes + 127) / 128);
+  *span = ((n_lanes + blocks - 1) / blocks + 31) / 32 * 32;
+  return (n_lanes + *span - 1) / *span;
 }
 
 }  // namespace
@@ -595,9 +688,14 @@ extern "C" int toi_launch(const float* verts_a, const int* count_a, const float*
                           const uint8_t* active, int* state, float* t, int n_lanes,
                           void* stream) {
   if (n_lanes <= 0) return 0;
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  toi_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      verts_a, count_a, radius_a, sweep_a, verts_b, count_b, radius_b, sweep_b, t_max,
-      active, state, t, n_lanes);
+  int span = 0;
+  const int blocks = grid(n_lanes, &span);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const Lanes L{verts_a, count_a, radius_a, sweep_a, verts_b, count_b, radius_b, sweep_b,
+                t_max,   active,  state,    t,       n_lanes};
+  toi_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(L, span);
   return (int)cudaGetLastError();
 }
+
+// the grid for n lanes: returns the blocks and writes each block's span
+extern "C" int toi_grid(int n_lanes, int* span) { return grid(n_lanes, span); }

@@ -2,7 +2,9 @@
 
 Same construction as `box2d_mt_tpu.models.scenes`, so the frozen states of
 the two packages are equal field by field. States land on the card unless
-the caller passes another `device` (the tests pass device="cpu")."""
+the caller passes another `device` (the tests pass device="cpu"). The CCD
+scenes take `WorldBuilder.freeze`'s capacities, so that they can share a
+batch (`state.concat_worlds`)."""
 
 import math
 import random
@@ -137,6 +139,57 @@ def cantilever(n=8, device="cuda"):
         wb.create_weld_joint(prev, b, (-5.0 + 1.0 * i, 5.0))
         prev = b
     return wb.freeze(device=device)
+
+
+def bullet_test(device="cuda", **capacity):
+    """Testbed/Tests/BulletTest.h:26-67 — thin dynamic plank at (0, 4) with
+    a dense 0.25-box bullet dropped at -50 m/s from (0.20352793, 10); the
+    reference's canonical CCD regression (x pinned to its recorded seed)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body(position=(0.0, 0.0))
+    wb.create_fixture(ground, shapes.Edge((-10.0, 0.0), (10.0, 0.0)))
+    wb.create_fixture(ground, shapes.Polygon.box(0.2, 1.0, (0.5, 1.0), 0.0))
+    plank = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 4.0))
+    wb.create_fixture(plank, shapes.Polygon.box(2.0, 0.1), density=1.0)
+    bullet = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                            position=(0.20352793, 10.0), bullet=True,
+                            linear_velocity=(0.0, -50.0))
+    wb.create_fixture(bullet, shapes.Polygon.box(0.25, 0.25), density=100.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def continuous_test(angular_velocity=46.661274, device="cuda", **capacity):
+    """Testbed/Tests/ContinuousTest.h:27-61 — spinning plank launched at
+    -100 m/s onto an edge ground next to a vertical wall; non-bullet
+    dynamic-vs-static CCD. omega defaults to the reference's recorded
+    seed (ContinuousTest.h:57)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body(position=(0.0, 0.0))
+    wb.create_fixture(ground, shapes.Edge((-10.0, 0.0), (10.0, 0.0)))
+    wb.create_fixture(ground, shapes.Polygon.box(0.2, 1.0, (0.5, 1.0), 0.0))
+    plank = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 20.0),
+                           linear_velocity=(0.0, -100.0),
+                           angular_velocity=angular_velocity)
+    wb.create_fixture(plank, shapes.Polygon.box(2.0, 0.1), density=1.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def bullet_on_stack(n=5, device="cuda", **capacity):
+    """Mini-island CCD oracle (b2World.cpp:902-1001 StepSolveTOI): a bullet
+    fired horizontally into the base of a vertical stack — the TOI sub-solve
+    must pull the hit box's stack neighbors into the island or the box
+    tunnels into them before the next full step."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    for i in range(n):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(0.0, 0.502 + 1.01 * i))
+        wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=1.0, friction=0.3)
+    bullet = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-20.0, 1.0),
+                            bullet=True, linear_velocity=(80.0, 0.0))
+    wb.create_fixture(bullet, shapes.Polygon.box(0.25, 0.25), density=20.0)
+    return wb.freeze(device=device, **capacity)
 
 
 def chain_links(n=30, device="cuda"):

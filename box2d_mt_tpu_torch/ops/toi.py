@@ -9,7 +9,9 @@ implementations take exactly the same arguments:
     PyTorch, modeled on the XLA path the JAX package runs on a CPU
     (world.py:1283-1289). It serves CPU tensors and is the reference the
     kernel is held against.
-  * the CUDA kernel `csrc/toi.cu`, one thread per lane.
+  * the CUDA kernel `csrc/toi.cu`: one launch, a block an SM, each block
+    compacting the active lanes of its span of lanes in shared memory and
+    solving them one a thread, 32 a warp.
     `time_of_impact_lanes` launches it for CUDA tensors, and never falls
     back.
 
@@ -35,6 +37,7 @@ neighbouring addresses.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,28 +46,27 @@ from . import distance
 
 SWEEP_ROWS = 8
 NV = 8
+# each argument's name, dtype and leading dimensions (the last is L)
+_ARGS = (("verts_a", torch.float32, (2, NV)), ("count_a", torch.int32, ()),
+         ("radius_a", torch.float32, ()), ("sweep_a", torch.float32, (SWEEP_ROWS,)),
+         ("verts_b", torch.float32, (2, NV)), ("count_b", torch.int32, ()),
+         ("radius_b", torch.float32, ()), ("sweep_b", torch.float32, (SWEEP_ROWS,)),
+         ("t_max", torch.float32, ()), ("active", torch.bool, ()))
 
 
-def _check(verts_a, count_a, radius_a, sweep_a, verts_b, count_b, radius_b,
-           sweep_b, t_max, active):
-    n = active.shape[0] if active.dim() == 1 else -1
-    want = {"verts_a": (verts_a, torch.float32, (2, NV, n)),
-            "count_a": (count_a, torch.int32, (n,)),
-            "radius_a": (radius_a, torch.float32, (n,)),
-            "sweep_a": (sweep_a, torch.float32, (SWEEP_ROWS, n)),
-            "verts_b": (verts_b, torch.float32, (2, NV, n)),
-            "count_b": (count_b, torch.int32, (n,)),
-            "radius_b": (radius_b, torch.float32, (n,)),
-            "sweep_b": (sweep_b, torch.float32, (SWEEP_ROWS, n)),
-            "t_max": (t_max, torch.float32, (n,)),
-            "active": (active, torch.bool, (n,))}
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
+def _check(args):
+    active = args[-1]
+    if active.dim() != 1:
+        raise ValueError(f"time_of_impact_lanes: active must be {torch.bool} of shape "
+                         f"(L,), got {active.dtype} {tuple(active.shape)}")
+    n, device = active.shape[0], active.device
+    for (name, dtype, lead), t in zip(_ARGS, args):
+        if t.dtype != dtype or t.shape != (*lead, n):
             raise ValueError(f"time_of_impact_lanes: {name} must be {dtype} of "
-                             f"shape {shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != active.device:
+                             f"shape {(*lead, n)}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
             raise ValueError(f"time_of_impact_lanes: {name} is on {t.device}, "
-                             f"active on {active.device}")
+                             f"active on {device}")
         if not t.is_contiguous():
             raise ValueError(f"time_of_impact_lanes: {name} must be contiguous")
 
@@ -75,39 +77,58 @@ def time_of_impact_lanes(verts_a, count_a, radius_a, sweep_a,
     kernel for CUDA tensors (see the module docstring)."""
     args = (verts_a, count_a, radius_a, sweep_a, verts_b, count_b, radius_b,
             sweep_b, t_max, active)
-    _check(*args)
-    if active.device.type == "cpu":
+    _check(args)
+    kind = active.device.type
+    if kind == "cuda":
+        return _launch(args)
+    if kind == "cpu":
         return time_of_impact_lanes_plain(*args)
-    if active.device.type != "cuda":
-        raise ValueError(f"time_of_impact_lanes: no implementation for {active.device}")
-    return _launch(*args)
+    raise ValueError(f"time_of_impact_lanes: no implementation for {active.device}")
 
 
 time_of_impact_lanes.launches = 0
 
 
-def _launch(*args):
+def _launch(args):
+    """One launch of csrc/toi.cu on PyTorch's current stream; raises when
+    the launch is refused."""
     active = args[-1]
-    n = active.shape[0]
-    state = torch.empty(n, dtype=torch.int32, device=active.device)
-    t = torch.empty(n, dtype=torch.float32, device=active.device)
-    fn = _entry()
-    stream = torch.cuda.current_stream(active.device).cuda_stream
-    with torch.cuda.device(active.device):
-        err = fn(*(a.data_ptr() for a in args), state.data_ptr(), t.data_ptr(),
-                 n, stream)
+    device, n = active.device, active.shape[0]
+    state = torch.empty(n, dtype=torch.int32, device=device)
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    call = (*[a.data_ptr() for a in args], state.data_ptr(), t.data_ptr(), n,
+            torch._C._cuda_getCurrentRawStream(device.index))
+    fn = _entry("toi_launch")
+    if torch._C._cuda_getDevice() == device.index:
+        err = fn(*call)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*call)
     if err != 0:
         raise RuntimeError(f"time_of_impact kernel launch failed: CUDA error {err}")
     time_of_impact_lanes.launches += 1
     return state, t
 
 
-def _entry():
-    fn = load("toi").toi_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+# C entry points of csrc/toi.cu and their arguments; each returns an int
+_ENTRIES = {"toi_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p],
+            "toi_grid": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
+
+
+@functools.cache
+def _entry(name):
+    fn = getattr(load("toi"), name)
+    fn.argtypes, fn.restype = _ENTRIES[name], ctypes.c_int
     return fn
+
+
+def grid(n_lanes):
+    """The kernel's grid for `n_lanes` lanes on the current card: (blocks,
+    lanes a block). At most one block an SM, so one wave; each block
+    compacts the active lanes of its span and solves them 32 a warp."""
+    span = ctypes.c_int(0)
+    blocks = _entry("toi_grid")(n_lanes, ctypes.byref(span))
+    return blocks, span.value
 
 
 def time_of_impact_lanes_plain(verts_a, count_a, radius_a, sweep_a,

@@ -370,3 +370,13 @@ def replicate(state: State, n: int) -> State:
     state becomes n identical worlds)."""
     return map_leaves(
         lambda t: t.repeat((n,) + (1,) * (t.dim() - 1)).contiguous(), state)
+
+
+def concat_worlds(states) -> State:
+    """One batch of the worlds of `states` in order; they must share their
+    capacities (freeze them with the same ones)."""
+    leaves = [[] for _ in states]
+    for out, st in zip(leaves, states):
+        map_leaves(lambda t: out.append(t) or t, st)
+    it = iter(zip(*leaves))
+    return map_leaves(lambda _: torch.cat(next(it)), states[0])

@@ -53,7 +53,13 @@ on any failure:
      path's last-step inputs, each world eight times), each with the path
      K1 took (resident or ring), its launch shape and the chain of passes
      its busiest world runs; and at 512 x pyramid(10) without sweeps and
-     with each kind of sweep alone;
+     with each kind of sweep alone. K2 (its grid beside each) also on
+     phase 3's fast-box lanes (131,072, 4,096
+     active, one a warp before compaction), on 4096 x pyramid(10)'s first
+     round with a touching lane (131,072, 40,960 active; rolled here and
+     held to the plain version bit for bit), and on the main path's
+     busiest round with only its costliest lane active (the chain floor:
+     one lane's dependent chain and the launch);
   9. the sandwich (K3 pack, K4 velocity sweep, K5 position sweep, K6
      unpack) against K1 on joint-free batches: on phase 2's captured
      inputs K3 -> 8 x K4 -> integrate_positions -> 3 x K5 -> K6 gives
@@ -79,9 +85,17 @@ on any failure:
      plain versions, 32 x tumbler(200) for 20 steps (c, a to 2e-5, v and
      the joint impulses to 1e-4, awake equal);
  12. K3-K6: the times of phase 8 on the tumbler's recorded inputs, each
-     one's bound (the solved lanes' rows) and, for K3 and K6, the device
-     time of the PyTorch calls that compute the same function; K4 and K5
-     also on the chain's busiest step.
+     one's bound (the solved lanes' rows; K3's in the 32-byte sectors of
+     the blob rows its gather touches, printed beside the count in 4-byte
+     words) and, for K3 and K6, the device time of the PyTorch calls that
+     compute the same function; K4 and K5 also on the chain's busiest
+     step;
+ 13. continuous collision against Box2D's C++ goldens: bullet_test,
+     continuous_test and bullet_on_stack as one batch of three worlds
+     through K2 for 120 steps, each held over the steps its bound reads
+     (0-8 below 2e-2, 0-119 below 3e-2, 0-59 below 0.1, the JAX
+     package's bounds), with no color overflow and a TOI impact in each
+     window; K2 against its plain version on the roll's busiest round.
 
 The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
@@ -130,6 +144,13 @@ K1_OPS_VEL, K1_OPS_POS = 130, 260
 # writes back; position rows 0-3, 6-9 and 32-46, and it writes min_sep
 K4_ROWS, K5_ROWS = (36, 4), (23, 1)
 K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
+# the CCD scenes held to their C++ goldens (tests/golden/<name>_120.jsonl):
+# bodies in the trace, steps the bound reads, the JAX package's bound
+# (tests/test_golden_zoo.py:117-139); frozen with one set of capacities so
+# that the three share a batch
+CCD_GOLDENS = {"bullet_test": (3, 9, 2e-2), "continuous_test": (2, 120, 3e-2),
+               "bullet_on_stack": (7, 60, 0.1)}
+CCD_CAPACITY = dict(body_capacity=8, fixture_capacity=8, contact_capacity=64)
 
 
 def card_line() -> str:
@@ -481,6 +502,42 @@ def k2_bytes(args):
     return every + n_on * per_on + n_verts * 2 * va.element_size()
 
 
+def costliest_lane(lanes):
+    """The lanes with only the active lane of most f32 operations (loop
+    trips of the plain version, weighted as in K2_OPS) left active."""
+    import torch
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    stats = {}
+    ktoi.time_of_impact_lanes_plain(*lanes, stats=stats)
+    ops = sum(K2_OPS[k] * v.to(torch.int64) for k, v in stats.items())
+    only = torch.zeros_like(lanes[-1])
+    only[int(ops.argmax())] = True
+    return (*lanes[:-1], only)
+
+
+def time_toi(lanes, floor, label, phase=8):
+    """K2's times on one set of lanes (see `measure`), the plain version's,
+    the loop trips and the bound; prints one line and returns them."""
+    import torch
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    m = measure(ktoi.time_of_impact_lanes, lanes)
+    plain = time_call(ktoi.time_of_impact_lanes_plain, lanes, reps=3)
+    stats = {}
+    state, _ = ktoi.time_of_impact_lanes_plain(*lanes, stats=stats)
+    trips = {k: int(v.sum()) for k, v in stats.items()}
+    most = {k: int(v.max()) for k, v in stats.items()}
+    n_bytes = k2_bytes(lanes)
+    bnd = bound(n_bytes, sum(K2_OPS[k] * n for k, n in trips.items()))
+    active = int(lanes[-1].sum())
+    print(f"phase {phase} toi [{label}, {lanes[-1].shape[0]} lanes, {active} active, "
+          f"{int((state == 3).sum())} touching]: {show(m, n_bytes)}; "
+          f"{m['ms'] / floor['ms']:.2f} x the launch floor; plain {plain:.4f} ms per call; "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]}: {n_bytes} B; device time at "
+          f"{100 * bnd[0] / m['ms']:.2f}% of it); loop trips {trips}, most in a lane {most}")
+    return dict(m, plain_ms=plain, bound=bnd, n_bytes=n_bytes, lanes=lanes[-1].shape[0],
+                active=active)
+
+
 class SandwichRecorder:
     """A `sandwich=` hook for step_batched that launches K3-K6 and keeps,
     per step, references to the inputs that no later call changes (blob,
@@ -648,16 +705,29 @@ def sandwich_bytes(first):
     """Bytes each of K3-K6 must move for these inputs, each read or
     written once: the solved lanes' rows of the packed table that the
     function touches, their perm and dyn_ab entries, color_start, and the
-    body planes in and out; K6 writes the whole (W, 5, C) aux."""
+    body planes in and out; K6 writes the whole (W, 5, C) aux. K3 gathers
+    a solved lane's 51 words from slot-order blob rows, and DRAM and L2
+    move whole 32-byte sectors: its count is the distinct sectors of each
+    world's blob rows that the gather through perm touches, the packed
+    rows it writes and perm. Returns the counts, the solved lanes and K3's
+    count in 4-byte words alone (the count before sectors)."""
+    import torch
     blob, perm, cs = first["pack_packed"]
     nw, rows, nc = blob.shape
     solved = int(cs[:, -1].sum())
     cs_b = cs.numel() * cs.element_size()
     planes = 2 * first["vel_iter_packed"][4].numel() * 4
     sweep = lambda rw: solved * (4 * sum(rw) + 4 + 1) + cs_b + planes
-    return {"pack_packed": solved * (4 * rows + 4 + 4 * (rows + 1)) + cs_b,
+    used = torch.arange(nc, device=perm.device) < cs[:, -1:]
+    row0 = (torch.arange(nw, device=perm.device)[:, None] * rows
+            + torch.arange(rows, device=perm.device)[None, :]) * nc      # (W, rows)
+    words = row0[:, :, None] + perm.long()[:, None, :]                  # (W, rows, C)
+    sectors = torch.unique(words[used[:, None, :].expand(-1, rows, -1)] * 4 // 32).numel()
+    written = solved * 4 * (rows + 1) + solved * 4 + cs_b
+    return {"pack_packed": 32 * sectors + written,
             "vel_iter_packed": sweep(K4_ROWS), "pos_iter_packed": sweep(K5_ROWS),
-            "unpack_packed": solved * (4 * 5 + 4) + cs_b + nw * 5 * nc * 4}, solved
+            "unpack_packed": solved * (4 * 5 + 4) + cs_b + nw * 5 * nc * 4}, solved, \
+        solved * 4 * rows + written
 
 
 def library_calls(first):
@@ -732,6 +802,50 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside):
           f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
           f"awake bodies/world={float((b.awake & (b.body_type == 2)).sum(1).float().mean()):.1f}")
     return launches, rec
+
+
+def ccd_goldens(dev):
+    """The three CCD scenes as one batch of worlds on the card, through K2,
+    against their C++ traces over the steps each bound reads; returns
+    their worst errors and the recorder of the roll's K2 calls."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import concat_worlds
+    from box2d_mt_tpu_torch.world import step_batched
+    states = concat_worlds([getattr(scenes, name)(device=dev, **CCD_CAPACITY)
+                            for name in CCD_GOLDENS])
+    rec = Recorder()
+    steps = max(n for _, n, _ in CCD_GOLDENS.values())
+    kept = []
+    ktoi.time_of_impact_lanes.launches = 0
+    for _ in range(steps):
+        states, ev = step_batched(states, DT, velocity_iterations=8, position_iterations=3,
+                                  toi=rec.time_of_impact)
+        b = states.bodies
+        kept.append(torch.cat([b.xf_p, b.a[..., None]], -1))
+        kept.append(torch.stack([ev.color_overflow.to(torch.float32),
+                                 ev.toi_begin.any(1).to(torch.float32)], -1)[:, None])
+    got = torch.stack(kept[0::2]).cpu().numpy()          # (step, world, body, 3)
+    flags = torch.stack(kept[1::2]).cpu().numpy()[:, :, 0]
+    launches = ktoi.time_of_impact_lanes.launches
+    if launches <= 0 or launches != len(rec.toi):
+        raise AssertionError(f"CCD scenes: {launches} K2 launches for {len(rec.toi)} calls")
+    worst = {}
+    for w, (name, (n_bodies, n_steps, limit)) in enumerate(CCD_GOLDENS.items()):
+        ref = np.asarray([[rb[:3] for rb in json.loads(line)["bodies"]]   # x, y, angle
+                          for line in open(ROOT / f"tests/golden/{name}_120.jsonl")])
+        mine = got[:n_steps, w, n_bodies - 1::-1]        # reverse creation order
+        worst[name] = float(np.abs(mine - ref[:n_steps]).max())
+        overflow, impact = flags[:n_steps, w, 0].max(), flags[:n_steps, w, 1].max()
+        print(f"phase 13 {name} on the card, steps 0-{n_steps - 1}: worst error "
+              f"{worst[name]:.3g} (bound {limit}), color overflow {int(overflow)}, "
+              f"TOI impact {bool(impact)}")
+        if not worst[name] < limit or overflow != 0 or not impact:
+            raise AssertionError(f"{name}: the C++ golden is not met")
+    print(f"phase 13 K2 launches in the {steps}-step roll: {launches}")
+    return worst, rec
 
 
 def main() -> int:
@@ -938,23 +1052,28 @@ def main() -> int:
     k1_bound = bound(k1_bytes(args_main),
                      solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
                                + MAIN["position_iterations"] * K1_OPS_POS))
-    k2_m = measure(ktoi.time_of_impact_lanes, lanes_main)
-    k2_plain = time_call(ktoi.time_of_impact_lanes_plain, lanes_main, reps=3)
-    stats = {}
-    state, t = ktoi.time_of_impact_lanes_plain(*lanes_main, stats=stats)
-    trips = {k: int(v.sum()) for k, v in stats.items()}
-    k2_bound = bound(k2_bytes(lanes_main),
-                     sum(K2_OPS[k] * n for k, n in trips.items()))
-    n_lanes = lanes_main[-1].shape[0]
-    print(f"phase 8 toi [512 x pyramid(10), main path's busiest round, {n_lanes} lanes, "
-          f"{int(lanes_main[-1].sum())} active, {int((state == 3).sum())} touching]: "
-          f"{show(k2_m, k2_bytes(lanes_main))}; plain {k2_plain:.4f} ms per call; "
-          f"loop trips {trips}")
     print(f"phase 8 bounds: solve_middle {k1_bound[0]:.5f} ms ({k1_bound[1]}: "
           f"{k1_bytes(args_main)} B, {solved} solved lanes; device time at "
-          f"{100 * k1_bound[0] / k1_m['ms']:.2f}% of it), toi {k2_bound[0]:.5f} ms "
-          f"({k2_bound[1]}: {k2_bytes(lanes_main)} B; device time at "
-          f"{100 * k2_bound[0] / k2_m['ms']:.2f}% of it)")
+          f"{100 * k1_bound[0] / k1_m['ms']:.2f}% of it)")
+    # K2 at three shapes (its grid beside each) and on the main path's
+    # round with only its costliest lane active: how much of K2 is one
+    # lane's dependent chain
+    lanes_4096 = capture_toi(batch(10, 4096, dev), 30)
+    err_k2 = max(err_k2, compare_toi(lanes_4096, "4096 x pyramid(10), first touching round",
+                                     min_touching=1, phase=8))
+    k2 = {}
+    for key, label, lanes in (
+            ("main", "512 x pyramid(10), main path's busiest round", lanes_main),
+            ("fast", "4096 fast boxes vs a thin wall", lanes_b),
+            ("4096", "4096 x pyramid(10), first touching round", lanes_4096),
+            ("chain", "chain floor: the main path's busiest round, only its costliest "
+                      "lane active", costliest_lane(lanes_main))):
+        k2[key] = time_toi(lanes, floor, label)
+        blocks, span = ktoi.grid(k2[key]["lanes"])
+        print(f"  grid: {blocks} blocks of 384 threads, {span} lanes a block "
+              f"({ktoi.grid(1 << 30)[0]} resident at once)")
+    del lanes_4096
+    k2_m, k2_plain, k2_bound = k2["main"], k2["main"]["plain_ms"], k2["main"]["bound"]
 
     lap(8)
     # ---- 9. the sandwich against K1 on a joint-free batch
@@ -1015,7 +1134,7 @@ def main() -> int:
 
     lap(11)
     # ---- 12. K3-K6: time per call and bound at the tumbler's busiest step
-    sw_bytes, solved_t = sandwich_bytes(first_t)
+    sw_bytes, solved_t, k3_words = sandwich_bytes(first_t)
     sw_ops = {"pack_packed": 0, "vel_iter_packed": solved_t * K1_OPS_VEL,
               "pos_iter_packed": solved_t * K1_OPS_POS, "unpack_packed": 0}
     sw = {}
@@ -1033,7 +1152,13 @@ def main() -> int:
               f"({bnd[1]}: {sw_bytes[name]} B; device time at {100 * bnd[0] / m['ms']:.2f}% "
               f"of it, {m['ms'] / floor['ms']:.2f} x the launch floor); library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms on the device'}")
-    sw_bytes_c, solved_c = sandwich_bytes(first_c)
+        if name == "pack_packed":
+            words = bound(k3_words, 0)
+            print(f"phase 12 pack_packed bound in 32-byte sectors {bnd[0]:.5f} ms "
+                  f"({sw_bytes[name]} B, device time at {100 * bnd[0] / m['ms']:.2f}%); "
+                  f"in 4-byte words {words[0]:.5f} ms ({k3_words} B, "
+                  f"{100 * words[0] / m['ms']:.2f}%)")
+    sw_bytes_c, solved_c, _ = sandwich_bytes(first_c)
     for name in ("vel_iter_packed", "pos_iter_packed"):
         fn, plain = getattr(sm, name), getattr(sm, name + "_plain")
         m = measure(fn, first_c[name], profiler=False)
@@ -1044,6 +1169,12 @@ def main() -> int:
               f"{bnd[0]:.5f} ms ({bnd[1]}; device time at {100 * bnd[0] / m['ms']:.2f}% of "
               f"it, {m['ms'] / floor['ms']:.2f} x the launch floor)")
     lap(12)
+    # ---- 13. continuous collision against the C++ goldens
+    _, rec = ccd_goldens(dev)
+    err_k2 = max(err_k2, compare_toi(rec.busiest_toi(), "CCD scenes, busiest round",
+                                     min_touching=1, phase=13))
+    del rec
+    lap(13)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     record = []

@@ -40,7 +40,7 @@ from box2d_mt_tpu_torch import joints as tjoints
 from box2d_mt_tpu_torch import world as tworld
 from box2d_mt_tpu_torch.joints import solver as tsolver
 from box2d_mt_tpu_torch.models import scenes as tscenes
-from box2d_mt_tpu_torch.state import (JOINT_BLOCKS, map_leaves, replicate,
+from box2d_mt_tpu_torch.state import (JOINT_BLOCKS, concat_worlds, replicate,
                                       state_from_numpy, to_numpy)
 
 from conftest import GOLDEN
@@ -356,15 +356,6 @@ _GOLDEN_CAPACITY = dict(body_capacity=4, fixture_capacity=2, contact_capacity=64
                         joint_capacity={"revolute": 1, "prismatic": 1, "weld": 1})
 
 
-def _cat_worlds(states):
-    """One batch of the worlds of `states` (equal static shapes)."""
-    leaves = [[] for _ in states]
-    for out, st in zip(leaves, states):
-        map_leaves(lambda t: out.append(t) or t, st)
-    it = iter(zip(*leaves))
-    return map_leaves(lambda _: torch.cat(next(it)), states[0])
-
-
 @pytest.fixture(scope="module")
 def golden_worst():
     """Each golden's worst position/angle error over its 240 steps against
@@ -374,7 +365,7 @@ def golden_worst():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tworld.WorldBuilder, "freeze",
                    lambda self, **kw: freeze(self, **_GOLDEN_CAPACITY, **kw))
-        st = _cat_worlds([build() for build, _, _ in _GOLDENS.values()])
+        st = concat_worlds([build() for build, _, _ in _GOLDENS.values()])
     refs = [[json.loads(line) for line in open(GOLDEN / f"{name}.jsonl")]
             for name in _GOLDENS]
     worst, clean = [0.0] * len(_GOLDENS), True

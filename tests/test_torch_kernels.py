@@ -6,7 +6,12 @@ Elsewhere every case skips. Inputs are captured from the port's own step
 (8 x pyramid(10) after 30 steps); max_colors=3 makes the coloring
 overflow, which exercises the kernel's Jacobi chunk path. The
 time-of-impact kernel gets the lanes of the step in which a pyramid's
-bottom row reaches the ground, and of fast boxes thrown at a thin wall.
+bottom row reaches the ground, and of fast boxes thrown at a thin wall,
+and golden lanes tiled to every launch shape of its grid (no
+lane active, one lane, a ragged count, one active lane a warp, every lane
+active, spans of two segments with more active lanes than a block has
+threads), each launched twice; its wrapper's argument checks run on the
+CPU too.
 The four sandwich kernels get the inputs of one step of 8 x tumbler(40)
 (a joint world, after the boxes have landed), recorded through the
 `sandwich=` hook, and the solve middle's inputs of joint-free pyramids at
@@ -21,6 +26,8 @@ manifold type, and angles past sinf's fast range."""
 
 import ctypes
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -140,6 +147,112 @@ def test_toi_kernel_matches_plain(scene):
     assert torch.equal(k_state, p_state)
     assert torch.equal(k_t, p_t)
     assert int((k_state == 3).sum()) > 0
+
+
+_TOI_GOLDEN = pathlib.Path(__file__).resolve().parent / "golden" / "toi.jsonl"
+
+
+def _golden_lanes(n, device, active=None):
+    """n lanes in time_of_impact_lanes' argument contract, lane i a copy of
+    golden lane i % 200 of tests/golden/toi.jsonl (147 separated, 38
+    touching, 15 overlapped); `active` a bool mask (every lane if None)."""
+    rows = [json.loads(line) for line in open(_TOI_GOLDEN)]
+    pick = np.arange(n) % len(rows)
+
+    def side(key, sweep_key):
+        verts = np.zeros((len(rows), 2, 8), np.float32)
+        sweep = np.zeros((len(rows), 8), np.float32)
+        for i, r in enumerate(rows):
+            vs = np.asarray(r[key]["verts"], np.float32)
+            verts[i, :, :len(vs)] = vs.T
+            sweep[i, 2:] = r[sweep_key]
+        count = np.asarray([len(r[key]["verts"]) for r in rows], np.int32)
+        radius = np.asarray([r[key]["radius"] for r in rows], np.float32)
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                for x in (verts[pick].transpose(1, 2, 0), count[pick], radius[pick],
+                          sweep[pick].T)]
+
+    act = torch.ones(n, dtype=torch.bool) if active is None else torch.as_tensor(active)
+    return (*side("a", "sweepA"), *side("b", "sweepB"),
+            torch.ones(n, device=device), act.to(device))
+
+
+def _faulty(t, fault):
+    """`t` with one fault: another dtype, one lane too few (a second axis
+    for the 1-D `active`), another device, or a strided layout."""
+    if fault == "dtype":
+        return t.to({torch.float32: torch.float64, torch.int32: torch.int64,
+                     torch.bool: torch.uint8}[t.dtype])
+    if fault == "shape":
+        return t[:, None] if t.dtype == torch.bool else t[..., :-1].contiguous()
+    if fault == "device":
+        return t.to("meta")
+    wide = torch.zeros((*t.shape[:-1], 2 * t.shape[-1]), dtype=t.dtype)
+    wide[..., ::2] = t
+    return wide[..., ::2]
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "contiguous"])
+def test_toi_wrapper_checks_arguments(fault):
+    """The time-of-impact wrapper refuses each malformed argument by its
+    name before any launch; well-formed CPU lanes take the plain version."""
+    args = _golden_lanes(40, "cpu")
+    state, t = ktoi.time_of_impact_lanes(*args)
+    assert torch.equal(state, ktoi.time_of_impact_lanes_plain(*args)[0])
+    assert int((state == 3).sum()) > 0
+    for i, (name, _, _) in enumerate(ktoi._ARGS):
+        bad = list(args)
+        bad[i] = _faulty(args[i], fault)
+        # the others' device is held against `active`'s
+        match = ("active on meta" if (fault, name) == ("device", "active")
+                 else f": {name} is on meta" if fault == "device" else f": {name} ")
+        with pytest.raises(ValueError, match=match):
+            ktoi.time_of_impact_lanes(*bad)
+
+
+def _toi_case(case):
+    """(lanes, active mask) of one launch shape of the time-of-impact
+    kernel's grid (a block an SM, each over a span of lanes)."""
+    if case == "inactive":
+        return 4096, np.zeros(4096, bool)
+    if case == "one_lane":
+        return 1, np.ones(1, bool)
+    if case == "ragged":                    # no multiple of 32: a short last span
+        return 1001, np.arange(1001) % 3 != 1
+    if case == "one_per_warp":              # the fast-box rounds' layout
+        return 65536, np.arange(65536) % 32 == 7
+    if case == "all_active":
+        return 8192, np.ones(8192, bool)
+    # spans of two segments, each with more active lanes than the block
+    # has threads: warps solve batch after batch
+    n = ktoi.grid(1 << 30)[0] * 3600 + 77
+    return n, np.ones(n, bool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["inactive", "one_lane", "ragged", "one_per_warp",
+                                  "all_active", "long_spans"])
+def test_toi_kernel_matches_plain_at_every_launch_shape(case):
+    """Bit-equal to the plain version, twice in a row (a launch carries
+    nothing over to the next)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    n, active = _toi_case(case)
+    args = _golden_lanes(n, "cuda", active)
+    p_state, p_t = ktoi.time_of_impact_lanes_plain(*args)
+    launches = ktoi.time_of_impact_lanes.launches
+    for _ in range(2):
+        k_state, k_t = ktoi.time_of_impact_lanes(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k_state, p_state)
+        assert torch.equal(k_t, p_t)
+    assert ktoi.time_of_impact_lanes.launches == launches + 2
+    blocks, span = ktoi.grid(n)
+    assert blocks * span >= n > (blocks - 1) * span and span % 32 == 0
+    on = torch.as_tensor(active).cuda()
+    assert torch.all(k_state[~on] == 0)
+    if active.any():
+        assert int((k_state[on] != 0).sum()) > 0
 
 
 class _RecordedSandwich:
