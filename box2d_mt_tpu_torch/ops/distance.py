@@ -11,8 +11,8 @@ one host read per trip; a lane that is done is frozen, so each lane ends
 with the scalar function's result. `time_of_impact` is the plain version
 of the time-of-impact kernel (`ops/toi.py`, `csrc/toi.cu`), which runs
 the same arithmetic in the same order, one thread per lane.
-
-`shape_cast` and `test_overlap` come with raycasts and sensors.
+`test_overlap` is b2TestOverlap, the sensors' touch test. `shape_cast`
+comes with raycasts.
 """
 
 from typing import NamedTuple
@@ -204,17 +204,20 @@ def _gjk_iter(s: _Simplex, verts_a, count_a, pa, qa, verts_b, count_b, pb, qb):
 
 
 def gjk_distance(verts_a, count_a, radius_a, pa, qa,
-                 verts_b, count_b, radius_b, pb, qb,
+                 verts_b, count_b, radius_b, pb, qb, use_radii: bool = False,
                  cache_ia=None, cache_ib=None, cache_count=None, active=None,
-                 stats=None):
-    """b2Distance over lanes, without the radii (the TOI phase's use).
-    Returns (point_a, point_b, distance, cache_ia (L, 3), cache_ib (L, 3),
-    cache_count) - the cache seeds the TOI separation function like
-    b2SimplexCache, and passing a previous call's cache warm-starts the
-    simplex (b2Simplex::ReadCache).
+                 stats=None, syncs=None):
+    """b2Distance over lanes. Returns (point_a, point_b, distance,
+    cache_ia (L, 3), cache_ib (L, 3), cache_count) - the cache seeds the
+    TOI separation function like b2SimplexCache, and passing a previous
+    call's cache warm-starts the simplex (b2Simplex::ReadCache).
+    `use_radii` moves the witness points onto the rounded surfaces and
+    subtracts the radii from the distance (b2Distance.cpp:585-605; the TOI
+    phase runs without).
 
     Lanes where `active` is False run no iteration; their results are
-    meaningless and the caller discards them."""
+    meaningless and the caller discards them. The loop's per-trip host
+    read goes through `syncs` (an `ops.sync.HostSyncs`) when one is given."""
     n = count_a.shape[0]
     dev = count_a.device
     if cache_ia is not None:
@@ -244,7 +247,8 @@ def gjk_distance(verts_a, count_a, radius_a, pa, qa,
     done = (torch.zeros(n, dtype=torch.bool, device=dev) if active is None
             else ~active)
     for _ in range(GJK_ITERS):
-        if not bool((~done).any()):
+        live = (~done).any()
+        if not (bool(live) if syncs is None else syncs.flag(live)):
             break
         _count(stats, "gjk", ~done)
         s2, done2 = _gjk_iter(s, verts_a, count_a, pa, qa, verts_b, count_b, pb, qb)
@@ -258,7 +262,26 @@ def gjk_distance(verts_a, count_a, radius_a, pa, qa,
                + bw[:, 2, None] * s.wb[:, 2])
     point_b = torch.where((s.count == 3)[:, None], point_a, point_b)
     dist = torch.sqrt(dot(point_b - point_a, point_b - point_a))
+    if use_radii:
+        r_sum = radius_a + radius_b
+        separated = ((dist > r_sum) & (dist > EPS))[:, None]
+        n, _ = normalize(point_b - point_a)
+        mid = 0.5 * (point_a + point_b)
+        point_a, point_b = (torch.where(separated, point_a + radius_a[:, None] * n, mid),
+                            torch.where(separated, point_b - radius_b[:, None] * n, mid))
+        dist = torch.where(separated[:, 0], dist - r_sum, 0.0)
     return point_a, point_b, dist, s.ia, s.ib, s.count
+
+
+def test_overlap(verts_a, count_a, radius_a, pa, qa,
+                 verts_b, count_b, radius_b, pb, qb, syncs=None):
+    """b2TestOverlap (b2Collision.cpp:233-252) over lanes: GJK distance
+    with the radii below 10 * b2_epsilon; the sensor-touch test
+    (b2Contact.cpp:199-205). (L,) bool."""
+    _, _, d, _, _, _ = gjk_distance(verts_a, count_a, radius_a, pa, qa,
+                                    verts_b, count_b, radius_b, pb, qb,
+                                    use_radii=True, syncs=syncs)
+    return d < 10.0 * EPS
 
 
 # --------------------------------------------------------------------------

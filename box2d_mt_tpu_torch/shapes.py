@@ -1,9 +1,11 @@
 """Host-side shape definitions used at world-construction time.
 
-The subset of `box2d_mt_tpu.shapes` that the contact-only slice needs:
-polygons (box helper, weld + gift-wrap hull, mass) and edges with ghost
-vertices. numpy only; `WorldBuilder.freeze()` packs them into the dense
-`Fixtures` tensors. Circles and chains come with their colliders.
+A copy of `box2d_mt_tpu.shapes`: circles, edges with ghost vertices,
+polygons (box helper, weld + gift-wrap hull, mass) and chains. numpy
+only; `WorldBuilder.freeze()` packs them into the dense `Fixtures`
+tensors. Chains are decomposed into edge children here (reference:
+b2ChainShape::GetChildEdge), so the device only sees circle, edge and
+polygon rows.
 """
 
 from __future__ import annotations
@@ -23,6 +25,20 @@ class MassData:
     mass: float
     center: Tuple[float, float]
     inertia: float  # about the body origin
+
+
+@dataclasses.dataclass
+class Circle:
+    """b2CircleShape (Shapes/b2CircleShape.h)."""
+    radius: float
+    center: Tuple[float, float] = (0.0, 0.0)
+
+    def compute_mass(self, density: float) -> MassData:
+        # b2CircleShape::ComputeMass (b2CircleShape.cpp:73-80)
+        mass = density * math.pi * self.radius * self.radius
+        cx, cy = self.center
+        inertia = mass * (0.5 * self.radius * self.radius + cx * cx + cy * cy)
+        return MassData(mass, (cx, cy), inertia)
 
 
 @dataclasses.dataclass
@@ -138,6 +154,32 @@ class Polygon:
         com = center + s
         inertia = density * inertia + mass * (com @ com - center @ center)
         return MassData(float(mass), (float(com[0]), float(com[1])), float(inertia))
+
+
+@dataclasses.dataclass
+class Chain:
+    """b2ChainShape (Shapes/b2ChainShape.h). `children()` yields per-edge
+    Edge shapes with ghost vertices from neighbors, replicating
+    b2ChainShape::GetChildEdge (b2ChainShape.cpp:148-180)."""
+    vertices: Sequence[Tuple[float, float]]
+    loop: bool = False
+    # CreateChain's optional explicit ghosts (b2ChainShape.h:79-87)
+    prev_vertex: Optional[Tuple[float, float]] = None
+    next_vertex: Optional[Tuple[float, float]] = None
+
+    def children(self):
+        v = [tuple(map(float, p)) for p in self.vertices]
+        n = len(v)
+        if self.loop:
+            # b2ChainShape::CreateLoop: n children, wraparound ghosts
+            for i in range(n):
+                yield Edge(v1=v[i], v2=v[(i + 1) % n],
+                           v0=v[(i - 1) % n], v3=v[(i + 2) % n])
+        else:
+            for i in range(n - 1):
+                v0 = v[i - 1] if i > 0 else self.prev_vertex
+                v3 = v[i + 2] if i < n - 2 else self.next_vertex
+                yield Edge(v1=v[i], v2=v[i + 1], v0=v0, v3=v3)
 
 
 def _polygon_centroid(verts: np.ndarray) -> np.ndarray:

@@ -23,9 +23,8 @@ Each `lax.cond` / `lax.while_loop` predicate of the JAX program is read
 back to the host here; `Events.host_syncs` counts those reads per step.
 
 Not ported yet, and refused rather than skipped: seven of the eleven
-joint types (revolute, distance, prismatic and weld are ported), sensors,
-the circle colliders, the pre-solve/filter hooks, and the grid pair finder
-(above 1024 fixtures).
+joint types (revolute, distance, prismatic and weld are ported), the
+pre-solve/filter hooks, and the grid pair finder (above 1024 fixtures).
 """
 
 from __future__ import annotations
@@ -107,6 +106,14 @@ class _PreSolve(NamedTuple):
     end_touch: torch.Tensor
 
 
+class _Table(NamedTuple):
+    """What the step read of its pair table before the collide phase."""
+    kinds: tuple              # the contact kinds that have a pair
+    kind: torch.Tensor        # (W,C) i32 contact kind of each pair
+    sensor: torch.Tensor      # (W,C) bool existing sensor pairs
+    any_sensor: bool
+
+
 class _Mids(NamedTuple):
     ni_it: torch.Tensor
     ti_it: torch.Tensor
@@ -126,12 +133,30 @@ class _Mids(NamedTuple):
 # --------------------------------------------------------------------------
 
 
-def _collide_b(states: State, kinds):
-    """Batched narrow phase (b2ContactManager::Collide). Every ported kind
-    runs over all contact lanes and each lane keeps its own kind's result.
-    Returns (manifold (W,C,...), ba, bb, unsupported): `unsupported` is a
-    device flag set when an existing pair is a sensor pair or of a kind in
-    `kinds` that is not ported."""
+def _pair_kinds(states: State):
+    """The pair table's contact kind (W, C) i32 and its sensor pairs
+    (W, C) bool, existing pairs only."""
+    fx, table = states.fixtures, states.contacts
+    ia, ib = table.f_a.clamp_min(0).long(), table.f_b.clamp_min(0).long()
+    kind = nph.contact_kind(take(fx.shape_type, ia), take(fx.shape_type, ib))
+    sensor = (take(fx.is_sensor, ia) | take(fx.is_sensor, ib)) & (table.f_a >= 0)
+    return kind, sensor
+
+
+def _table_flags(kind, sensor, exists, kinds):
+    """Device predicates: some sensor pair exists; for each of `kinds`,
+    some pair of that kind exists."""
+    return (sensor.any(), *(((kind == k) & exists).any() for k in kinds))
+
+
+def _collide_b(states: State, table: _Table, syncs: HostSyncs):
+    """Batched narrow phase (b2ContactManager::Collide). Every kind of
+    `table.kinds` runs over all contact lanes and each lane keeps its own
+    kind's result. Sensor pairs also get their touch from
+    `distance.test_overlap` (b2Contact::Update's sensor branch,
+    b2Contact.cpp:193-202), run on the sensor lanes only and only when a
+    sensor pair exists. Returns (manifold (W,C,...), sensor_touch, ba, bb)."""
+    kind, sensor = table.kind, table.sensor
     fx, contacts, bodies = states.fixtures, states.contacts, states.bodies
     nw, nc = contacts.f_a.shape
     ia = contacts.f_a.clamp_min(0).long()
@@ -139,13 +164,6 @@ def _collide_b(states: State, kinds):
     pair_exists = contacts.f_a >= 0
     ba = take(fx.body, ia).clamp_min(0).long()
     bb = take(fx.body, ib).clamp_min(0).long()
-    kind = nph.contact_kind(take(fx.shape_type, ia), take(fx.shape_type, ib))
-    sensor = take(fx.is_sensor, ia) | take(fx.is_sensor, ib)
-    unported = torch.zeros_like(pair_exists)
-    for k in kinds:
-        if k not in nph.CORE_COLLIDERS:
-            unported |= kind == k
-    unsupported = (pair_exists & (sensor | unported)).any()
 
     p_all, q_all = body_xf(bodies.c, bodies.a, bodies.local_center)
     flat = lambda x: x.reshape((nw * nc,) + x.shape[2:])
@@ -158,6 +176,22 @@ def _collide_b(states: State, kinds):
         p, q = flat(take(p_all, b)), flat(take(q_all, b))
         return shape, p[:, 0], p[:, 1], q[:, 0], q[:, 1]
 
+    sensor_touch = torch.zeros_like(pair_exists)
+    n_s = syncs.value(sensor.sum()) if table.any_sensor else 0
+    if n_s:
+        smask = sensor.reshape(-1)
+        lane = torch.argsort(smask.to(torch.int8), descending=True, stable=True)[:n_s]
+        world = lane // nc
+
+        def proxy(f, b):
+            f, b = f.reshape(-1)[lane], b.reshape(-1)[lane]
+            return (fx.verts[world, f], fx.nverts[world, f], fx.radius[world, f],
+                    p_all[world, b], q_all[world, b])
+
+        touch = distance.test_overlap(*proxy(ia, ba), *proxy(ib, bb), syncs=syncs)
+        sensor_touch = sensor_touch.reshape(-1).index_put(
+            (lane,), touch).reshape(nw, nc)
+
     la, lb = lanes(ia, ba), lanes(ib, bb)
     dev = ia.device
     zi = torch.zeros((nw, nc), dtype=torch.int32, device=dev)
@@ -166,25 +200,26 @@ def _collide_b(states: State, kinds):
         local_normal=torch.zeros((nw, nc, 2), device=dev),
         points=torch.zeros((nw, nc, 2, 2), device=dev),
         ids=torch.zeros((nw, nc, 2), dtype=torch.int32, device=dev), count=zi)
-    for k in kinds:
-        if k not in nph.CORE_COLLIDERS:
-            continue
+    for k in table.kinds:
         mk = nph.lanes_to_manifold(nph.CORE_COLLIDERS[k](*la, *lb))
         sel = (kind == k) & pair_exists
         man = nph.Manifold(*(
             torch.where(sel.reshape(sel.shape + (1,) * (old.dim() - 2)),
                         new.reshape(old.shape), old)
             for new, old in zip(mk, man)))
-    return man, ba, bb, unsupported
+    return man, sensor_touch, ba, bb
 
 
-def _pre_touch(state: State, manifold: nph.Manifold, ba, bb) -> _PreTouch:
+def _pre_touch(state: State, manifold: nph.Manifold, sensor, sensor_touch,
+               ba, bb) -> _PreTouch:
     """Touch transitions + warm-start id matching + wake hits (the
-    b2Contact::Update tail)."""
+    b2Contact::Update tail). A sensor pair touches when its shapes
+    overlap, keeps no manifold points, wakes nobody when its touch changes
+    and is never solved (b2Contact.cpp:193-205)."""
     bodies, contacts = state.bodies, state.contacts
     nw, nb = bodies.body_type.shape
     pair_exists = contacts.f_a >= 0
-    touching = pair_exists & (manifold.count > 0)
+    touching = pair_exists & torch.where(sensor, sensor_touch, manifold.count > 0)
 
     # warm-start impulse matching by feature id (b2Contact.cpp:210-230)
     two = torch.arange(2, device=ba.device)
@@ -199,8 +234,8 @@ def _pre_touch(state: State, manifold: nph.Manifold, ba, bb) -> _PreTouch:
         return torch.where(match0, old[..., 0:1],
                            torch.where(match1, old[..., 1:2], 0.0))
 
-    # touch transitions wake both bodies
-    changed = pair_exists & (touching != contacts.touching)
+    # touch transitions wake both bodies (non-sensor)
+    changed = pair_exists & ~sensor & (touching != contacts.touching)
     hit = torch.zeros((nw, nb + 1), dtype=torch.bool, device=ba.device)
     dump = torch.full_like(ba, nb)
     hit.scatter_(1, torch.cat([torch.where(changed, ba, dump),
@@ -209,7 +244,7 @@ def _pre_touch(state: State, manifold: nph.Manifold, ba, bb) -> _PreTouch:
     contacts = dataclasses.replace(
         contacts, m_type=manifold.mtype, m_local_point=manifold.local_point,
         m_local_normal=manifold.local_normal, m_points=manifold.points,
-        m_ids=manifold.ids, m_count=manifold.count,
+        m_ids=manifold.ids, m_count=torch.where(sensor, 0, manifold.count),
         normal_impulse=matched(contacts.normal_impulse),
         tangent_impulse=matched(contacts.tangent_impulse), touching=touching)
 
@@ -217,7 +252,7 @@ def _pre_touch(state: State, manifold: nph.Manifold, ba, bb) -> _PreTouch:
     dyn = bodies.is_dynamic & bodies.enabled
     return _PreTouch(
         contacts=contacts, awake0=awake0, non_static=non_static,
-        solvable=touching, dyn_a=take(dyn, ba),
+        solvable=touching & ~sensor, dyn_a=take(dyn, ba),
         dyn_b=take(dyn, bb),
         begin_touch=pair_exists & touching & ~state.contacts.touching,
         end_touch=pair_exists & ~touching & state.contacts.touching)
@@ -1102,13 +1137,25 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
     b0 = states.bodies
     any_active = (b0.awake & (b0.body_type >= 0)
                   & (b0.body_type != settings.STATIC_BODY)).any()
-    dirty, active = syncs.flags(states.pairs_dirty.any(), any_active)
+    # the table's contact kinds and sensor pairs, read with the first
+    # predicates: the collide phase runs only the colliders of kinds that
+    # have a pair, and the sensor test only when a sensor pair exists
+    kinds = tuple(k for k in kinds if k != nph.KIND_INVALID)
+    kind, sensor = _pair_kinds(states)
+    dirty, active, any_sensor, *present = syncs.flags(
+        states.pairs_dirty.any(), any_active,
+        *_table_flags(kind, sensor, states.contacts.f_a >= 0, kinds))
     if dirty:
         # between-step mutations: pairs are found at the START of Step
         # (e_newFixture -> FindNewContacts, b2World.cpp:1628-1639)
         f_a, f_b, _ = broadphase.find_pairs(states, nc)
         states = dataclasses.replace(states, contacts=broadphase.carry_over_contacts(
             states.contacts, f_a, f_b, nf))
+        kind, sensor = _pair_kinds(states)
+        any_sensor, *present = syncs.flags(
+            *_table_flags(kind, sensor, states.contacts.f_a >= 0, kinds))
+    table = _Table(tuple(k for k, p in zip(kinds, present) if p), kind, sensor,
+                   any_sensor)
     states = dataclasses.replace(states,
                                  pairs_dirty=torch.zeros_like(states.pairs_dirty))
     if not active:
@@ -1125,7 +1172,7 @@ def step_batched(states: State, dt, velocity_iterations: int = 8,
             host_syncs=syncs.count)
     new_state, events = _step_active(
         states, dt, velocity_iterations, position_iterations, warm_starting,
-        allow_sleep, max_colors, kinds, middle, sandwich, syncs)
+        allow_sleep, max_colors, table, middle, sandwich, syncs)
     if continuous and toi_rounds > 0:
         new_state, toi_overflow, toi_begin = _continuous(
             new_state, dt, velocity_iterations, toi_rounds, kinds,
@@ -1159,15 +1206,15 @@ def _continuous(states: State, dt: float, velocity_iterations, toi_rounds,
 
 def _step_active(states: State, dt: float, velocity_iterations,
                  position_iterations, warm_starting, allow_sleep, max_colors,
-                 kinds, middle, sandwich, syncs: HostSyncs):
+                 table, middle, sandwich, syncs: HostSyncs):
     """The phase pipeline with the cross-step graph-pass cache: island
     labels and colors depend only on the contact and joint graph, so they
     are reused while the batch-global signatures match
     (world.py:2099-2185)."""
-    manifold, ba, bb, unsupported = _collide_b(states, kinds)
+    manifold, sensor_touch, ba, bb = _collide_b(states, table, syncs)
     nb = states.bodies.capacity
     cache = states.cache
-    pt = _pre_touch(states, manifold, ba, bb)
+    pt = _pre_touch(states, manifold, table.sensor, sensor_touch, ba, bb)
     f_a, f_b = states.contacts.f_a, states.contacts.f_b
     jb_a, jb_b, j_active = build_joint_arrays(states.joints)
     valid_all = cache.valid.all()
@@ -1179,13 +1226,7 @@ def _step_active(states: State, dt: float, velocity_iterations,
         labels_same = (labels_same & (j_active == cache.sig_jact).all()
                        & (jb_a == cache.sig_jba).all()
                        & (jb_b == cache.sig_jbb).all())
-    bad, labels_same = syncs.flags(unsupported, labels_same)
-    if bad:
-        raise NotImplementedError(
-            "the batch has a sensor pair or a contact of a kind whose "
-            "collider is not ported yet (ported: polygon-polygon, "
-            "edge-polygon)")
-    if labels_same:
+    if syncs.flag(labels_same):
         labels = cache.labels
     elif jb_a is None:
         labels = islands.island_labels(nb, ba, bb, pt.solvable, pt.non_static,
@@ -1291,8 +1332,8 @@ class _FixtureDef:
 
 class WorldBuilder:
     """Host-side world construction; `freeze()` yields a one-world State.
-    Bodies, polygon/edge fixtures and revolute, distance, prismatic and
-    weld joints."""
+    Bodies, circle/edge/polygon/chain fixtures (sensors included) and
+    revolute, distance, prismatic and weld joints."""
 
     def __init__(self, gravity=(0.0, -10.0)):
         self.gravity = tuple(gravity)
@@ -1315,15 +1356,18 @@ class WorldBuilder:
                        restitution=0.0, is_sensor=False, filter_category=1,
                        filter_mask=0xFFFF, filter_group=0,
                        thick_shape=False) -> int:
-        """Returns the fixture index."""
-        if not isinstance(shape, (shapes.Polygon, shapes.Edge)):
-            raise NotImplementedError(
-                f"{type(shape).__name__} shapes are not ported yet "
-                "(polygons and edges are)")
-        self._fixtures.append(_FixtureDef(
-            body, shape, density, friction, restitution, is_sensor,
-            filter_category, filter_mask, filter_group, thick_shape))
-        return len(self._fixtures) - 1
+        """Returns the fixture index (the first child's for a chain, which
+        becomes one edge fixture per child)."""
+        if not isinstance(shape, (shapes.Circle, shapes.Edge, shapes.Polygon,
+                                  shapes.Chain)):
+            raise TypeError(f"unknown shape {type(shape).__name__}")
+        first = len(self._fixtures)
+        children = shape.children() if isinstance(shape, shapes.Chain) else [shape]
+        for child in children:
+            self._fixtures.append(_FixtureDef(
+                body, child, density, friction, restitution, is_sensor,
+                filter_category, filter_mask, filter_group, thick_shape))
+        return first
 
     def _add_joint(self, kind: str, **kw) -> int:
         lst = self._joints.setdefault(kind, [])
@@ -1565,7 +1609,11 @@ def _pack_fixtures(defs, nf) -> dict:
         thick[i] = fd.thick_shape
         s = fd.shape
         radius[i] = s.radius
-        if isinstance(s, shapes.Edge):
+        if isinstance(s, shapes.Circle):
+            shape_type[i] = settings.SHAPE_CIRCLE
+            verts[i, 0] = s.center
+            nverts[i] = 1
+        elif isinstance(s, shapes.Edge):
             shape_type[i] = settings.SHAPE_EDGE
             verts[i, 0] = s.v1
             verts[i, 1] = s.v2

@@ -95,7 +95,25 @@ on any failure:
      through K2 for 120 steps, each held over the steps its bound reads
      (0-8 below 2e-2, 0-119 below 3e-2, 0-59 below 0.1, the JAX
      package's bounds), with no color overflow and a TOI impact in each
-     window; K2 against its plain version on the roll's busiest round.
+     window; K2 against its plain version on the roll's busiest round;
+ 14. circles, chains and sensors: 512 x sphere_stack(10) x 120 steps (ten
+     unit circles a world dropped at -50 m/s onto an edge ground: K1 with
+     circle-circle lanes, K2 with circle proxies against the edge),
+     counting both kernels' launches, with no NaN, no color or TOI
+     overflow and every circle's center above y = 0.5; worlds*steps/s,
+     host syncs and CUDA kernels per step; K1 held against its plain
+     version (phase 4's rules) on the step with the most e_circles lanes
+     and K2 on the round with the most circle-proxy lanes, with the lane
+     counts by manifold type and by proxy vertex count, and both timed
+     there. 256 x pinball x 240 steps (a bullet circle in a chain loop
+     with two motorized flippers: K3-K6, and K2 against the chain's
+     edges) as in phase 10, K3-K6 held against their plain versions on
+     its busiest step, with its solved lanes by manifold type. Then the
+     zoo goldens on the card: nineteen scenes (circle, chain, sensor and
+     joint worlds; see ZOO_GOLDENS) as one padded batch, each held over
+     the steps its JAX test reads at that test's bounds, the sensor's
+     begin and end steps equal to the trace's, and falling_circle alone at
+     the 6 and 2 iterations of its trace.
 
 The last lines are the card line, the kernels' JSON record and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
@@ -151,6 +169,47 @@ K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
 CCD_GOLDENS = {"bullet_test": (3, 9, 2e-2), "continuous_test": (2, 120, 3e-2),
                "bullet_on_stack": (7, 60, 0.1)}
 CCD_CAPACITY = dict(body_capacity=8, fixture_capacity=8, contact_capacity=64)
+# the packed constraint table's manifold-type row (ops/solver.py
+# pack_cc_blob_t) and the type names, in MANIFOLD_* order
+MTYPE_ROW = 46
+MTYPES = ("e_circles", "e_faceA", "e_faceB")
+# the zoo scenes held to their C++ goldens on the card (phase 14):
+# (builder, its arguments, golden file, bodies in the trace, steps the
+# bounds read, bound on the worst error, bound on the last step's error
+# or None) at the JAX package's bounds (tests/test_step.py,
+# tests/test_golden_zoo.py, tests/test_golden_interactive.py); all roll as
+# one batch, frozen with the capacities of the largest
+ZOO_GOLDENS = {
+    "distance_pendulum": ("distance_pendulum", (), "distance_240", 2, 240, 5e-3, None),
+    "sphere_stack(5)": ("sphere_stack", (5,), "sphere_stack_240", 6, 240, 0.8, 0.08),
+    "bridge(12)": ("bridge", (12,), "bridge_240", 18, 240, 0.25, 0.10),
+    "heavy_on_light": ("heavy_on_light", (), "heavy_on_light_240", 3, 240, 0.08, 0.02),
+    "varying_restitution": ("varying_restitution", (), "varying_restitution_300", 8, 300,
+                            1e-2, None),
+    "edge_test": ("edge_test", (), "edge_test_120", 3, 120, 5e-3, 1e-4),
+    "chain_problem": ("chain_problem", (), "chain_problem_180", 2, 180, 5e-3, 1e-4),
+    "web": ("web", (), "web_240", 5, 240, 1e-4, None),
+    "slider_crank": ("slider_crank", (), "slider_crank_240", 4, 240, 2e-2, 5e-3),
+    "basic_slider_crank": ("basic_slider_crank", (), "basic_slider_crank_240", 4, 240,
+                           1e-2, 2e-3),
+    "body_types": ("body_types", (), "body_types_240", 4, 240, 2e-2, None),
+    "mobile(3)": ("mobile", (3,), "mobile_240", 16, 240, 0.8, 0.4),
+    "mobile_balanced(3)": ("mobile_balanced", (3,), "mobile_balanced_240", 16, 240, 1e-2,
+                           None),
+    "varying_friction": ("varying_friction", (), "varying_friction_300", 11, 300, 0.05,
+                         None),
+    "vertical_stack(5)": ("vertical_stack", (5,), "stack_5_240", 6, 240, 0.02, 0.02),
+    "cantilever(4)": ("cantilever", (4,), "cantilever_240", 12, 240, 0.12, 0.05),
+    "chain_links(10)": ("chain_links", (10,), "chain_links_240", 11, 240, 0.05, None),
+    # only the pyramids' 42 boxes (slots 1-42) are held; they must sleep
+    "sleep_collide_perf(2, 6, 1, 20)": ("sleep_collide_perf", (2, 6, 1, 20),
+                                        "sleep_collide_perf_300", 64, 300, 0.05, None),
+    # begin and end steps equal the trace's; the ball's final height
+    "sensor_drop": ("sensor_drop", (), "sensor_180", None, 180, 5e-3, None),
+}
+ZOO_CAPACITY = dict(body_capacity=64, fixture_capacity=128, contact_capacity=512,
+                    joint_capacity={"revolute": 15, "distance": 8, "prismatic": 1,
+                                    "weld": 11})
 
 
 def card_line() -> str:
@@ -167,9 +226,12 @@ def batch(rows, n, device):
 
 
 def joint_batch(scene, size, n, device):
+    """n copies of scenes.<scene>(size), or of scenes.<scene>() when size
+    is None."""
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.state import replicate
-    return replicate(getattr(scenes, scene)(size, device=device), n)
+    args = () if size is None else (size,)
+    return replicate(getattr(scenes, scene)(*args, device=device), n)
 
 
 def roll(states, n_steps, check=None, **kw):
@@ -758,7 +820,44 @@ def kernels_per_step(states, n_steps=3):
     return n / n_steps if n else None
 
 
-def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside):
+def phase_split(states, n_steps=5, **kw):
+    """ms a step spent in the collide phase, the solve middle and the TOI
+    phase over n_steps, each phase timed between two synchronizations (so
+    none of them overlaps the host's launches with the device's work),
+    beside the synchronized step's ms."""
+    import torch
+    from box2d_mt_tpu_torch import world
+    names = {"_collide_b": "collide", "_solve_middle_b": "solve middle",
+             "_continuous": "TOI phase"}
+    saved = {n: getattr(world, n) for n in names}
+    spent = dict.fromkeys(names.values(), 0.0)
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label] += time.perf_counter() - t0
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(world, n, timed(names[n], fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll(states, n_steps, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(world, n, fn)
+    split = ", ".join(f"{k} {1e3 * v / n_steps:.2f}" for k, v in spent.items())
+    return f"{1e3 * total / n_steps:.2f} ms a step ({split} ms; synchronized split)"
+
+
+def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10):
     """The sandwich's main path on one joint scene: launch counts, health,
     speed. Returns (record of the run, the recorder)."""
     import torch
@@ -786,7 +885,7 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside):
     want = dict(pack_packed=n, vel_iter_packed=MAIN["velocity_iterations"] * n,
                 pos_iter_packed=MAIN["position_iterations"] * n, unpack_packed=n,
                 solve_middle=0)
-    label = f"{n_worlds} x {scene}({size})"
+    label = f"{n_worlds} x {scene}({'' if size is None else size})"
     if n <= 0 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     b = states.bodies
@@ -794,7 +893,7 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside):
         raise AssertionError(f"{label}: NaN/inf in the body state")
     inside(states)
     per_step = kernels_per_step(states)
-    print(f"phase 10 {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
+    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
           f"{n_worlds * n_steps / elapsed:.1f} worlds*steps/s, launches={launches}, "
           f"host syncs/step={syncs / n_steps:.2f}, CUDA kernels+copies/step="
           f"{'not measured' if per_step is None else f'{per_step:.0f}'}, "
@@ -846,6 +945,249 @@ def ccd_goldens(dev):
             raise AssertionError(f"{name}: the C++ golden is not met")
     print(f"phase 13 K2 launches in the {steps}-step roll: {launches}")
     return worst, rec
+
+
+def lanes_by_mtype(blob, perm, color_start):
+    """Solved lanes of each manifold type: (3,) on the device."""
+    import torch
+    used = torch.arange(perm.shape[1], device=perm.device) < color_start[:, -1:]
+    mtype = blob[:, MTYPE_ROW].gather(1, perm.long())
+    return torch.stack([((mtype == k) & used).sum() for k in range(len(MTYPES))])
+
+
+def proxy_counts(lanes):
+    """Active lanes by (vertex count of proxy A, of proxy B)."""
+    import torch
+    pairs = torch.stack([lanes[1], lanes[5]], 1)[lanes[-1]]
+    keys, counts = torch.unique(pairs, dim=0, return_counts=True)
+    return {tuple(k): int(n) for k, n in zip(keys.tolist(), counts.tolist())}
+
+
+class CircleRecorder(Recorder):
+    """Recorder that keeps every step's solve-middle arguments and their
+    solved lanes by manifold type (a device tensor: no host read in the
+    step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.middles = []
+
+    def solve_middle(self, *args):
+        self.middles.append((args, lanes_by_mtype(*args[:3])))
+        return super().solve_middle(*args)
+
+    def most_circles(self):
+        """The recorded solve middle with the most e_circles lanes and its
+        lanes by type."""
+        import torch
+        counts = torch.stack([c for _, c in self.middles]).tolist()
+        i = max(range(len(counts)), key=lambda j: (counts[j][0], sum(counts[j])))
+        return self.middles[i][0], dict(zip(MTYPES, counts[i]))
+
+    def most_circle_proxies(self):
+        """The recorded time-of-impact round with the most active lanes
+        that have a circle (one-vertex) proxy."""
+        n = [int((a[-1] & ((a[1] == 1) | (a[5] == 1))).sum()) for a, _ in self.toi]
+        return self.toi[max(range(len(n)), key=n.__getitem__)][0], max(n)
+
+
+def circle_stack(dev, floor):
+    """512 x sphere_stack(10) x 120 steps: K1 on circle-circle lanes, K2 on
+    circle proxies against the edge ground. Returns the kernels' errors
+    against their plain versions and the launches of the run."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    n_worlds, n_steps = 512, 120
+    roll(joint_batch("sphere_stack", 10, 8, dev), 3)        # first-use allocations
+    states = joint_batch("sphere_stack", 10, n_worlds, dev)
+    rec = CircleRecorder()
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def check(st, ev):
+        bad.copy_(torch.maximum(bad, torch.maximum(ev.color_overflow.max(),
+                                                   ev.toi_overflow.max())))
+
+    torch.cuda.synchronize()
+    sm.solve_middle.launches = 0
+    ktoi.time_of_impact_lanes.launches = 0
+    t0 = time.perf_counter()
+    states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
+                         toi=rec.time_of_impact)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"solve_middle": sm.solve_middle.launches,
+                "toi": ktoi.time_of_impact_lanes.launches}
+    b = states.bodies
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"sphere_stack did not launch every kernel: {launches}")
+    if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
+        raise AssertionError("sphere_stack: NaN/inf in the body state")
+    if int(bad) != 0:
+        raise AssertionError("sphere_stack: color or TOI overflow")
+    low = float(b.c[:, 1:11, 1].min())
+    if not low > 0.5:
+        raise AssertionError(f"sphere_stack: a circle fell through: center y {low}")
+    per_step = kernels_per_step(states)
+    split = phase_split(states)
+    print(f"phase 14 {n_worlds} x sphere_stack(10) x {n_steps} steps, continuous=True: "
+          f"{elapsed:.3f} s, {n_worlds * n_steps / elapsed:.1f} worlds*steps/s, "
+          f"launches={launches}, host syncs/step={syncs / n_steps:.2f}, CUDA "
+          f"kernels+copies/step={'not measured' if per_step is None else f'{per_step:.0f}'}, "
+          f"lowest circle center y={low:.4f}, "
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}; "
+          f"the next 5 steps: {split}")
+    args, by_type = rec.most_circles()
+    if by_type["e_circles"] <= 0:
+        raise AssertionError("sphere_stack: no e_circles lane was solved")
+    err_k1 = compare_middle(args, f"512 x sphere_stack(10), the step with most e_circles "
+                                  f"lanes, solved lanes by type {by_type}", phase=14)
+    lanes, n_circle = rec.most_circle_proxies()
+    counts = proxy_counts(lanes)
+    err_k2 = compare_toi(lanes, f"512 x sphere_stack(10), the round with most circle-proxy "
+                                f"lanes ({n_circle}), active lanes by (vertices of A, of B) "
+                                f"{counts}", min_touching=1, phase=14)
+    if n_circle <= 0:
+        raise AssertionError("sphere_stack: no circle proxy reached K2")
+    m = measure(sm.solve_middle, args)
+    solved = int(args[2][:, -1].sum())
+    bnd = bound(k1_bytes(args), solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
+                                          + MAIN["position_iterations"] * K1_OPS_POS))
+    print(f"phase 14 solve_middle [512 x sphere_stack(10), {solved} solved lanes]: "
+          f"{show(m, k1_bytes(args))}; bound {bnd[0]:.5f} ms ({bnd[1]}; device time at "
+          f"{100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)[0]}")
+    time_toi(lanes, floor, "512 x sphere_stack(10), the circle round", phase=14)
+    return err_k1, err_k2, launches
+
+
+def pinball_table(dev):
+    """256 x pinball x 240 steps: the sandwich K3-K6 on a joint world with
+    a bullet circle in a chain loop, and K2 against the chain's edges.
+    Returns the sandwich's errors against the plain versions and the
+    launches of the run."""
+    import torch
+
+    def ball_inside(states):
+        c = states.bodies.c[:, 3]                     # ground, flippers, ball
+        x, y = c[:, 0], c[:, 1]
+        out = ~((y > x.abs() - 2.05) & (x.abs() < 8.05) & (y < 20.05))
+        if bool(out.any()):
+            raise AssertionError(f"pinball: a ball left the table in {int(out.sum())} worlds")
+
+    launches, rec = run_joint_scene("pinball", None, 256, 240, dev, ball_inside, phase=14)
+    if launches["toi"] <= 0:
+        raise AssertionError(f"pinball: K2 was not launched: {launches}")
+    step = rec.busiest()
+    by_type = dict(zip(MTYPES, lanes_by_mtype(step["blob"], step["perm"],
+                                              step["color_start"]).tolist()))
+    err, _ = compare_sandwich(step, f"256 x pinball, busiest step, solved lanes by type "
+                                    f"{by_type}", phase=14)
+    return err, launches
+
+
+def zoo_goldens(dev):
+    """The zoo scenes of ZOO_GOLDENS as one batch of worlds on the card
+    (8 velocity and 3 position iterations, the default color budget, as
+    their JAX tests step them), and falling_circle alone at the 6 and 2
+    iterations its golden was recorded at; each against its C++ trace.
+    Raises when a bound is missed."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import concat_worlds, map_leaves
+    from box2d_mt_tpu_torch.world import possible_kinds, step_batched
+    names = list(ZOO_GOLDENS)
+    states = concat_worlds([getattr(scenes, spec[0])(*spec[1], device=dev, **ZOO_CAPACITY)
+                            for spec in ZOO_GOLDENS.values()])
+    kinds = possible_kinds(states)
+    window = [spec[4] for spec in ZOO_GOLDENS.values()]
+    alive = list(range(len(names)))            # the batch's worlds, by index in names
+    kept = []                                  # per step: (alive, poses, flags)
+    t0 = time.perf_counter()
+    for i in range(max(window)):
+        # a world leaves the batch when its window ends
+        if any(window[w] <= i for w in alive):
+            rows = [r for r, w in enumerate(alive) if window[w] > i]
+            alive = [alive[r] for r in rows]
+            idx = torch.tensor(rows, device=dev)
+            states = map_leaves(lambda t: t.index_select(0, idx), states)
+        states, ev = step_batched(states, DT, velocity_iterations=8, position_iterations=3,
+                                  kinds=kinds)
+        b = states.bodies
+        kept.append((alive, torch.cat([b.xf_p, b.a[..., None]], -1),
+                     torch.stack([ev.color_overflow.to(torch.float32),
+                                  (ev.begin_touch | ev.toi_begin).any(1).to(torch.float32),
+                                  ev.end_touch.any(1).to(torch.float32)], -1)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    awake = dict(zip(alive, states.bodies.awake.cpu().numpy()))
+
+    def world_rows(w, n_steps):
+        """World w's poses (step, body, 3) and flags (step, 3)."""
+        rows = [(a.index(w), p, f) for a, p, f in kept[:n_steps]]
+        return (torch.stack([p[r] for r, p, _ in rows]).cpu().numpy(),
+                torch.stack([f[r] for r, _, f in rows]).cpu().numpy())
+
+    print(f"phase 14 zoo goldens: {len(names)} worlds in one batch, each leaving it when "
+          f"its window ends, {max(window)} steps ({elapsed:.3f} s)")
+    worst = {}
+    for w, (name, (_, _, trace, n_bodies, n_steps, limit, last)) in enumerate(
+            ZOO_GOLDENS.items()):
+        ref = [json.loads(line) for line in open(ROOT / f"tests/golden/{trace}.jsonl")]
+        got, flags = world_rows(w, n_steps)
+        overflow = flags[:, 0].max()
+        if n_bodies is None:                             # the sensor scene
+            begins = np.flatnonzero(flags[:, 1]).tolist()
+            ends = np.flatnonzero(flags[:, 2]).tolist()
+            want_b = [r["step"] for r in ref if r.get("ev") == "begin"]
+            want_e = [r["step"] for r in ref if r.get("ev") == "end"]
+            final = [r for r in ref if "final" in r][0]["final"]
+            err = abs(float(got[n_steps - 1, 2, 1]) - final[1])
+            print(f"phase 14 golden {name}: sensor begin steps {begins} (C++ {want_b}), "
+                  f"end steps {ends} (C++ {want_e}); ball's final height error {err:.3g} "
+                  f"(bound {limit})")
+            ok = begins == want_b and ends == want_e and err < limit
+        else:
+            mine = np.stack([got[:, n_bodies - 1 - j] for j in range(len(ref[0]["bodies"]))],
+                            1)
+            trace_xya = np.asarray([[rb[:3] for rb in r["bodies"]] for r in ref[:n_steps]])
+            per_body = np.abs(mine - trace_xya).max(-1)          # (step, body)
+            if name.startswith("sleep_collide_perf"):
+                # the trace's body j is slot n_bodies - 1 - j: slots 1-42
+                held = [j for j in range(per_body.shape[1]) if 1 <= n_bodies - 1 - j <= 42]
+                per_body = per_body[:, held]
+                asleep = not awake[w][1:43].any()
+                ref_asleep = not any(ref[-1]["bodies"][j][6] for j in held)
+            errs = per_body.max(1)
+            ok = errs.max() < limit and (last is None or errs[-1] < last)
+            extra = ""
+            if name.startswith("sleep_collide_perf"):
+                ok = ok and asleep and ref_asleep
+                extra = f", pyramids asleep {asleep} (C++ {ref_asleep})"
+            if name.startswith("vertical_stack"):
+                drift = float(np.abs(got[n_steps - 1, 1:6, 0]).max())
+                ok = ok and drift < 0.05
+                extra = f", largest |x| {drift:.3g} (bound 0.05)"
+            print(f"phase 14 golden {name}, steps 0-{n_steps - 1}: worst error "
+                  f"{errs.max():.3g} (bound {limit}), last step {errs[-1]:.3g} "
+                  f"(bound {last}){extra}, color overflow {int(overflow)}")
+            worst[name] = float(errs.max())
+        if not ok or overflow != 0:
+            raise AssertionError(f"{name}: the C++ golden is not met")
+    # falling_circle: 6 velocity and 2 position iterations
+    states = scenes.falling_circle(device=dev)
+    ref = [json.loads(line) for line in open(ROOT / "tests/golden/circle_120.jsonl")]
+    kept = []
+    for _ in range(120):
+        states, ev = step_batched(states, DT, velocity_iterations=6, position_iterations=2)
+        kept.append(torch.cat([states.bodies.xf_p[0, :2], states.bodies.a[0, :2, None]], -1))
+    mine = torch.stack(kept).cpu().numpy()[:, ::-1]
+    errs = np.abs(mine - np.asarray([[rb[:3] for rb in r["bodies"]] for r in ref])).max((1, 2))
+    print(f"phase 14 golden falling_circle (6/2 iterations), steps 0-119: worst error "
+          f"{errs.max():.3g} (bound 0.5), last step {errs[-1]:.3g} (bound 0.2)")
+    if not (errs.max() < 0.5 and errs[-1] < 0.2):
+        raise AssertionError("falling_circle: the C++ golden is not met")
+    return worst
 
 
 def main() -> int:
@@ -945,10 +1287,14 @@ def main() -> int:
     roll(off, 60, continuous=False)
     torch.cuda.synchronize()
     el_off = time.perf_counter() - t0
+    per_step = kernels_per_step(states)
     print(f"phase 4 main path 512 x pyramid(10) x 60 steps, continuous=True: "
           f"{elapsed:.3f} s, {ws10:.1f} worlds*steps/s, launches={launches}, "
           f"host syncs/step={syncs / 60:.2f}, min box y={min_y:.4f}, "
-          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}")
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
+          f"CUDA kernels+copies/step (steps 61-63)="
+          f"{'not measured' if per_step is None else f'{per_step:.0f}'}; "
+          f"steps 64-68: {phase_split(states)}")
     print(f"phase 4 continuous=False: {el_off:.3f} s, {512 * 60 / el_off:.1f} "
           f"worlds*steps/s; TOI phase share of the continuous step "
           f"{(elapsed - el_off) / elapsed:.3f}")
@@ -1175,6 +1521,13 @@ def main() -> int:
                                      min_touching=1, phase=13))
     del rec
     lap(13)
+    # ---- 14. circles, chains and sensors
+    err_c1, err_c2, launches_s = circle_stack(dev, floor)
+    err_k1, err_k2 = max(err_k1, err_c1), max(err_k2, err_c2)
+    err_p, launches_p = pinball_table(dev)
+    err_sw = {k: max(v, err_p[k]) for k, v in err_sw.items()}
+    zoo_goldens(dev)
+    lap(14)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     record = []
@@ -1194,6 +1547,8 @@ def main() -> int:
     # of the joint scenes only the chain runs K2 as well
     if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:
         raise AssertionError(f"the chain's path missed a kernel: {launches_c}")
+    print(f"phase 14 launches: 512 x sphere_stack(10) {launches_s}; 256 x pinball "
+          f"{launches_p}")
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

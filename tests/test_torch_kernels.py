@@ -22,7 +22,12 @@ turns, and the solve middle takes its ring path), an overflow color of
 several chunks, a world without a solved lane, and slot counts that are
 no multiple of 4 (rows not 16-byte aligned), on both of the solve
 middle's paths. The position sweep also gets hand-built lanes of each
-manifold type, and angles past sinf's fast range."""
+manifold type, and angles past sinf's fast range. Circles: K1 gets the
+solve middle of 8 x sphere_stack(10) at a step whose solved lanes include
+circle-circle (e_circles) manifolds, and K2 the lanes of fast circles
+thrown at a static circle, a thin static box and an edge, where every
+proxy B has one vertex and each lane runs several conservative-advancement
+trips, its GJK warm-started from the previous trip's simplex."""
 
 import ctypes
 import dataclasses
@@ -545,3 +550,81 @@ def test_position_sweep_kernel_matches_plain_on_synthetic_lanes(case):
     assert bool(torch.isfinite(k_pos).all())
     assert float((k_pos - pos).abs().max()) > 1e-3           # the lanes moved bodies
     assert float(k_table[:, sm.MIN_SEP_ROW].min()) < 0.0     # and found overlap
+
+
+def _fast_circles(n, seed=3):
+    """n worlds of three 0.1 m circles thrown at 60-240 m/s at a static
+    circle, a thin static box and an edge, 2 m away."""
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    targets = wb.create_body(position=(2.0, 0.0))
+    wb.create_fixture(targets, shapes.Circle(0.3, (0.0, -4.0)))
+    wb.create_fixture(targets, shapes.Polygon.box(0.05, 1.0))
+    wb.create_fixture(targets, shapes.Edge((0.0, 3.0), (0.0, 5.0)))
+    for y in (-4.0, 0.0, 4.0):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, y))
+        wb.create_fixture(b, shapes.Circle(0.1), density=1.0)
+    states = replicate(wb.freeze(device="cuda"), n)
+    rng = np.random.default_rng(seed)
+    speed = rng.uniform(60.0, 240.0, (n, 3))
+    heading = rng.uniform(-0.05, 0.05, (n, 3))
+    v = states.bodies.v.clone()
+    v[:, 1:4] = torch.as_tensor(np.stack([speed * np.cos(heading), speed * np.sin(heading)],
+                                         -1), dtype=torch.float32, device="cuda")
+    return dataclasses.replace(states, bodies=dataclasses.replace(states.bodies, v=v))
+
+
+@pytest.mark.gpu
+def test_toi_kernel_matches_plain_on_circle_proxies():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    states = _fast_circles(512)
+    got = []
+
+    def capture(*args):
+        out = ktoi.time_of_impact_lanes(*args)
+        if not got and bool((out[0] == 3).any()):
+            got.append(args)
+        return out
+
+    states, _ = step_batched(states, DT, max_colors=16, toi=capture)
+    assert got, "no lane reported touching"
+    args = got[0]
+    k_state, k_t = ktoi.time_of_impact_lanes(*args)
+    p_state, p_t = ktoi.time_of_impact_lanes_plain(*args)
+    assert torch.equal(k_state, p_state) and torch.equal(k_t, p_t)
+    active = args[-1]
+    count_a, count_b = args[1], args[5]
+    assert bool((count_b[active] == 1).all())
+    for n_verts in (1, 4, 2):               # the circle, the box, the edge
+        lanes = active & (count_a == n_verts)
+        assert int((lanes & (k_state == 3)).sum()) > 100, n_verts
+
+
+@pytest.mark.gpu
+def test_solve_middle_kernel_matches_plain_on_circles():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    states = replicate(scenes.sphere_stack(10, device="cuda"), 8)
+    got = {}
+
+    def capture(*args):
+        blob, perm, color_start = args[:3]
+        used = torch.arange(perm.shape[1], device=perm.device) < color_start[:, -1:]
+        circles = (blob[:, 46].gather(1, perm.long()) == settings.MANIFOLD_CIRCLES) & used
+        if "args" not in got and int(circles.sum()) >= 8 * 4:
+            got["args"] = args
+        return sm.solve_middle(*args)
+
+    for _ in range(60):
+        states, _ = step_batched(states, DT, max_colors=16, middle=capture)
+        if "args" in got:
+            break
+    assert "args" in got, "no step solved circle-circle lanes"
+    args = got["args"]
+    k_vel, k_pos, k_aux = sm.solve_middle(*args)
+    p_vel, p_pos, p_aux = sm.solve_middle_plain(*args)
+    torch.testing.assert_close(k_pos, p_pos, rtol=0, atol=1e-5)
+    torch.testing.assert_close(k_vel, p_vel, rtol=0, atol=1e-4)
+    torch.testing.assert_close(k_aux[:, :4], p_aux[:, :4], rtol=0, atol=1e-4)
+    slop = -3.0 * settings.LINEAR_SLOP
+    assert torch.equal(k_aux[:, 4] >= slop, p_aux[:, 4] >= slop)
