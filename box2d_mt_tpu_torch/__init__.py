@@ -1,9 +1,10 @@
 """box2d_mt_tpu_torch — the PyTorch / CUDA port of box2d_mt_tpu.
 
 A batched 2D rigid-body engine on tensors with a leading world axis. It
-runs the step of polygon/edge worlds such as `models.scenes.pyramid`,
-continuous collision included, and of worlds with revolute, distance,
-prismatic and weld joints such as `models.scenes.tumbler`; its solve
+runs the step of worlds of circles, edges, polygons and chains such as
+`models.scenes.pyramid`, continuous collision included, and of worlds
+with joints of all eleven of Box2D's types such as `models.scenes.tumbler`
+and `models.scenes.car`; its solve
 middle (one kernel, or four around the joint passes) and its time of
 impact are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu),
 each with a plain PyTorch version for CPU tensors. States are built on the card

@@ -1,17 +1,18 @@
 """Batched joint constraint solvers.
 
-Port of `box2d_mt_tpu.joints.solver` for four joint types (revolute,
-distance, prismatic, weld; reference: Box2D/Dynamics/Joints/b2*Joint.cpp),
-written over a leading world axis where the JAX package vmaps a per-world
-function: blocks and per-joint data are (W, J...), body state is v (W, N,
-2), w (W, N), c (W, N, 2), a (W, N). Every expression keeps the JAX
-package's order of floating-point operations.
+Port of `box2d_mt_tpu.joints.solver` for all eleven joint types
+(reference: Box2D/Dynamics/Joints/b2*Joint.cpp), written over a leading
+world axis where the JAX package vmaps a per-world function: blocks and
+per-joint data are (W, J...), body state is v (W, N, 2), w (W, N), c (W,
+N, 2), a (W, N). Every expression keeps the JAX package's order of
+floating-point operations.
 
-All types share one coloring pass (joints conflict through shared dynamic
-bodies exactly like contacts); within a color every type's masked pass
-adds its deltas to disjoint dynamic bodies. Static endpoints are shared,
-and receive exact zeros from every lane, so the deltas are summed into
-zeros and then added (`math2d.add_rows`), never assigned through an index.
+All types but the gear share one coloring pass (joints conflict through
+shared dynamic bodies exactly like contacts); within a color every type's
+masked pass adds its deltas to disjoint dynamic bodies. Static endpoints
+are shared, and receive exact zeros from every lane, so the deltas are
+summed into zeros and then added (`math2d.add_rows`), never assigned
+through an index.
 
 Limit states (e_inactiveLimit/e_atLower/e_atUpper/e_equalLimits,
 b2Joint.h:77-84) persist across steps in the joint block and gate impulse
@@ -29,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from .. import settings
-from ..math2d import add_rows, cross_sv, cross_vv, dot, rot_from_angle, rot_vec, take
+from ..math2d import (add_rows, cross_sv, cross_vv, dot, rot_from_angle, rot_t_vec,
+                      rot_vec, take)
 from ..ops import coloring
 from ..ops.sync import HostSyncs
 
@@ -749,89 +751,760 @@ def _weld_position(blk, data, st, c, a, mask):
 
 
 # ==========================================================================
+# mouse (b2MouseJoint.cpp): soft drag of body B toward a world target
+# ==========================================================================
+
+
+class MouseData(NamedTuple):
+    com: _Common
+    r_b: torch.Tensor
+    m11: torch.Tensor
+    m12: torch.Tensor
+    m22: torch.Tensor
+    c_beta: torch.Tensor   # (W,J,2) beta * (cB + rB - target)
+    gamma: torch.Tensor
+
+
+def _mouse_init(blk, bodies, awake, color, dt_ratio, warm, dt):
+    com = _common(blk, bodies, awake, color)
+    r_b = rot_vec(rot_from_angle(take(bodies.a, com.body_b)),
+                  blk.local_anchor_b - com.lc_b)
+    mass_b = _inv(com.m_b, com.m_b > 0.0)
+    omega = 2.0 * math.pi * blk.frequency
+    d = 2.0 * mass_b * blk.damping_ratio * omega
+    k = mass_b * omega * omega
+    gamma_raw = dt * (d + dt * k)
+    gamma = _inv(gamma_raw, gamma_raw != 0.0)
+    beta = dt * k * gamma
+    k11 = com.m_b + com.i_b * r_b[..., 1] ** 2 + gamma
+    k12 = -com.i_b * r_b[..., 0] * r_b[..., 1]
+    k22 = com.m_b + com.i_b * r_b[..., 0] ** 2 + gamma
+    det = k11 * k22 - k12 * k12
+    inv = _inv(det, det != 0.0)
+    c_beta = beta[..., None] * (take(bodies.c, com.body_b) + r_b - blk.target)
+    imp = _warm_scaled(blk.impulse, dt_ratio, warm)
+    return (MouseData(com, r_b, inv * k22, -inv * k12, inv * k11, c_beta, gamma),
+            {"impulse": imp})
+
+
+def _mouse_warm(data, st, v, w):
+    com = data.com
+    p = st["impulse"]
+    # the reference damps wB by 0.98 at init (b2MouseJoint.cpp), whether
+    # or not warm starting is on
+    damp = torch.where(com.active, 0.98, 1.0).to(w.dtype)
+    w = w * torch.ones_like(w).scatter_reduce_(1, com.body_b, damp, "prod")
+    return _apply(com, v, w, _all_lanes(com), torch.zeros_like(p),
+                  torch.zeros_like(com.i_a), com.m_b[..., None] * p,
+                  com.i_b * cross_vv(data.r_b, p))
+
+
+def _mouse_velocity(blk, data, st, v, w, dt, mask):
+    com = data.com
+    m = mask & com.active
+    imp = st["impulse"]
+    cdot = (take(v, com.body_b) + cross_sv(take(w, com.body_b), data.r_b)
+            + data.c_beta + data.gamma[..., None] * imp)
+    ix = -(data.m11 * cdot[..., 0] + data.m12 * cdot[..., 1])
+    iy = -(data.m12 * cdot[..., 0] + data.m22 * cdot[..., 1])
+    imp_new = _clamp_length(imp + torch.stack([ix, iy], -1), dt * blk.max_force)
+    d_imp = torch.where(m[..., None], imp_new - imp, 0.0)
+    v, w = _apply(com, v, w, mask, torch.zeros_like(d_imp), torch.zeros_like(com.i_a),
+                  com.m_b[..., None] * d_imp, com.i_b * cross_vv(data.r_b, d_imp))
+    return {**st, "impulse": torch.where(m[..., None], imp_new, imp)}, v, w
+
+
+def _no_position(blk, data, st, c, a, mask):
+    """Mouse, friction and motor joints correct no position."""
+    return c, a, torch.ones_like(mask)
+
+
+def _clamp_length(x, max_len):
+    """x (..., 2) scaled down to length `max_len` where it is longer."""
+    ln = torch.sqrt(dot(x, x))
+    scale = torch.where(ln > max_len, max_len / torch.where(ln > 0, ln, 1.0), 1.0)
+    return x * scale[..., None]
+
+
+# ==========================================================================
+# friction (b2FrictionJoint.cpp): top-down friction
+# ==========================================================================
+
+
+class FrictionData(NamedTuple):
+    com: _Common
+    r_a: torch.Tensor
+    r_b: torch.Tensor
+    lm11: torch.Tensor
+    lm12: torch.Tensor
+    lm22: torch.Tensor
+    angular_mass: torch.Tensor
+
+
+def _lin22(com, r_a, r_b):
+    """The inverse of the point-to-point 2x2 mass matrix."""
+    mA, mB, iA, iB = com.m_a, com.m_b, com.i_a, com.i_b
+    k11 = mA + mB + iA * r_a[..., 1] ** 2 + iB * r_b[..., 1] ** 2
+    k12 = -iA * r_a[..., 0] * r_a[..., 1] - iB * r_b[..., 0] * r_b[..., 1]
+    k22 = mA + mB + iA * r_a[..., 0] ** 2 + iB * r_b[..., 0] ** 2
+    det = k11 * k22 - k12 * k12
+    inv = _inv(det, det != 0.0)
+    return inv * k22, -inv * k12, inv * k11
+
+
+def _friction_init(blk, bodies, awake, color, dt_ratio, warm):
+    com = _common(blk, bodies, awake, color)
+    _, r_a, r_b = _anchors(blk, com, take(bodies.a, com.body_a),
+                           take(bodies.a, com.body_b))
+    k33 = com.i_a + com.i_b
+    return (FrictionData(com, r_a, r_b, *_lin22(com, r_a, r_b), _inv(k33, k33 > 0.0)),
+            {"linear_impulse": _warm_scaled(blk.linear_impulse, dt_ratio, warm),
+             "angular_impulse": _warm_scaled(blk.angular_impulse, dt_ratio, warm)})
+
+
+def _friction_warm(data, st, v, w):
+    com = data.com
+    p = st["linear_impulse"]
+    ai = st["angular_impulse"]
+    return _apply(com, v, w, _all_lanes(com),
+                  -com.m_a[..., None] * p, -com.i_a * (cross_vv(data.r_a, p) + ai),
+                  com.m_b[..., None] * p, com.i_b * (cross_vv(data.r_b, p) + ai))
+
+
+def _friction_like_velocity(blk, data, st, v, w, dt, mask, ang_bias, lin_bias):
+    """The friction joint's velocity pass, and the motor joint's with its
+    position-error biases (b2FrictionJoint.cpp, b2MotorJoint.cpp
+    SolveVelocityConstraints): angular, then linear, each impulse clamped
+    to dt times its maximum."""
+    com = data.com
+    m = mask & com.active
+    va0, wa0 = take(v, com.body_a), take(w, com.body_a)
+    vb0, wb0 = take(v, com.body_b), take(w, com.body_b)
+    va, wa, vb, wb = va0, wa0, vb0, wb0
+    # angular
+    cdot_a = wb - wa
+    if ang_bias is not None:
+        cdot_a = cdot_a + ang_bias
+    lam = -data.angular_mass * cdot_a
+    max_a = dt * blk.max_torque
+    ai = st["angular_impulse"]
+    ai_new = _clip(ai + lam, -max_a, max_a)
+    d_ai = torch.where(m, ai_new - ai, 0.0)
+    wa = wa - com.i_a * d_ai
+    wb = wb + com.i_b * d_ai
+    # linear
+    cdot = vb + cross_sv(wb, data.r_b) - va - cross_sv(wa, data.r_a)
+    if lin_bias is not None:
+        cdot = cdot + lin_bias
+    ix = -(data.lm11 * cdot[..., 0] + data.lm12 * cdot[..., 1])
+    iy = -(data.lm12 * cdot[..., 0] + data.lm22 * cdot[..., 1])
+    li = st["linear_impulse"]
+    li_new = _clamp_length(li + torch.stack([ix, iy], -1), dt * blk.max_force)
+    d_li = torch.where(m[..., None], li_new - li, 0.0)
+    va = va - com.m_a[..., None] * d_li
+    wa = wa - com.i_a * cross_vv(data.r_a, d_li)
+    vb = vb + com.m_b[..., None] * d_li
+    wb = wb + com.i_b * cross_vv(data.r_b, d_li)
+    v, w = _apply(com, v, w, mask, va - va0, wa - wa0, vb - vb0, wb - wb0)
+    return {**st, "linear_impulse": torch.where(m[..., None], li_new, li),
+            "angular_impulse": torch.where(m, ai_new, ai)}, v, w
+
+
+def _friction_velocity(blk, data, st, v, w, dt, mask):
+    return _friction_like_velocity(blk, data, st, v, w, dt, mask, None, None)
+
+
+# ==========================================================================
+# rope (b2RopeJoint.cpp): a maximum distance
+# ==========================================================================
+
+
+class RopeData(NamedTuple):
+    com: _Common
+    r_a: torch.Tensor
+    r_b: torch.Tensor
+    u: torch.Tensor
+    mass: torch.Tensor
+    length: torch.Tensor
+
+
+def _rope_init(blk, bodies, awake, color, dt_ratio, warm):
+    com = _common(blk, bodies, awake, color)
+    _, r_a, r_b = _anchors(blk, com, take(bodies.a, com.body_a),
+                           take(bodies.a, com.body_b))
+    u = take(bodies.c, com.body_b) + r_b - take(bodies.c, com.body_a) - r_a
+    length = torch.sqrt(dot(u, u))
+    short = length <= settings.LINEAR_SLOP
+    u = torch.where(short[..., None], 0.0,
+                    u / torch.where(length > 0, length, 1.0)[..., None])
+    cr_a = cross_vv(r_a, u)
+    cr_b = cross_vv(r_b, u)
+    inv_mass = com.m_a + com.i_a * cr_a ** 2 + com.m_b + com.i_b * cr_b ** 2
+    mass = torch.where(short, 0.0, _inv(inv_mass, inv_mass != 0.0))
+    imp = torch.where(short, 0.0, _warm_scaled(blk.impulse, dt_ratio, warm))
+    return RopeData(com, r_a, r_b, u, mass, length), {"impulse": imp}
+
+
+def _rope_velocity(blk, data, st, v, w, dt, mask):
+    com = data.com
+    m = mask & com.active
+    vp_a = take(v, com.body_a) + cross_sv(take(w, com.body_a), data.r_a)
+    vp_b = take(v, com.body_b) + cross_sv(take(w, com.body_b), data.r_b)
+    c_err = data.length - blk.max_length
+    cdot = dot(data.u, vp_b - vp_a)
+    cdot = cdot + torch.where(c_err < 0.0, (1.0 / dt) * c_err, 0.0)
+    lam = -data.mass * cdot
+    imp = st["impulse"]
+    imp_new = torch.clamp_max(imp + lam, 0.0)
+    d_imp = torch.where(m, imp_new - imp, 0.0)
+    v, w = _distance_impulse(com, data, v, w, mask, d_imp[..., None] * data.u)
+    return {**st, "impulse": torch.where(m, imp_new, imp)}, v, w
+
+
+def _rope_position(blk, data, st, c, a, mask):
+    com = data.com
+    m = mask & com.active
+    _, r_a, r_b = _anchors(blk, com, take(a, com.body_a), take(a, com.body_b))
+    u = take(c, com.body_b) + r_b - take(c, com.body_a) - r_a
+    length = torch.sqrt(dot(u, u))
+    u = u / torch.where(length > 0, length, 1.0)[..., None]
+    cc = _clip(length - blk.max_length, 0.0, settings.MAX_LINEAR_CORRECTION)
+    lam = torch.where(m, -data.mass * cc, 0.0)
+    p = lam[..., None] * u
+    c, a = _scatter(com, c, a, m,
+                    -com.m_a[..., None] * p, -com.i_a * cross_vv(r_a, p),
+                    com.m_b[..., None] * p, com.i_b * cross_vv(r_b, p))
+    ok = (length - blk.max_length < settings.LINEAR_SLOP) | ~m
+    return c, a, ok
+
+
+# ==========================================================================
+# motor (b2MotorJoint.cpp): drives the relative transform to its offsets
+# ==========================================================================
+
+
+class MotorData(NamedTuple):
+    com: _Common
+    r_a: torch.Tensor
+    r_b: torch.Tensor
+    lm11: torch.Tensor
+    lm12: torch.Tensor
+    lm22: torch.Tensor
+    angular_mass: torch.Tensor
+    linear_error: torch.Tensor   # (W,J,2)
+    angular_error: torch.Tensor
+
+
+def _motor_init(blk, bodies, awake, color, dt_ratio, warm):
+    com = _common(blk, bodies, awake, color)
+    a_a, a_b = take(bodies.a, com.body_a), take(bodies.a, com.body_b)
+    r_a = rot_vec(rot_from_angle(a_a), blk.linear_offset - com.lc_a)
+    r_b = rot_vec(rot_from_angle(a_b), -com.lc_b)
+    k33 = com.i_a + com.i_b
+    lin_err = take(bodies.c, com.body_b) + r_b - take(bodies.c, com.body_a) - r_a
+    ang_err = a_b - a_a - blk.angular_offset
+    return (MotorData(com, r_a, r_b, *_lin22(com, r_a, r_b), _inv(k33, k33 > 0.0),
+                      lin_err, ang_err),
+            {"linear_impulse": _warm_scaled(blk.linear_impulse, dt_ratio, warm),
+             "angular_impulse": _warm_scaled(blk.angular_impulse, dt_ratio, warm)})
+
+
+def _motor_velocity(blk, data, st, v, w, dt, mask):
+    inv_h = 1.0 / dt
+    return _friction_like_velocity(
+        blk, data, st, v, w, dt, mask,
+        inv_h * blk.correction_factor * data.angular_error,
+        inv_h * blk.correction_factor[..., None] * data.linear_error)
+
+
+# ==========================================================================
+# wheel (b2WheelJoint.cpp): suspension axis, spring and motor
+# ==========================================================================
+
+
+class WheelData(NamedTuple):
+    com: _Common
+    ax: torch.Tensor
+    ay: torch.Tensor
+    s_ax: torch.Tensor
+    s_bx: torch.Tensor
+    s_ay: torch.Tensor
+    s_by: torch.Tensor
+    mass: torch.Tensor
+    spring_mass: torch.Tensor
+    motor_mass: torch.Tensor
+    bias: torch.Tensor
+    gamma: torch.Tensor
+
+
+def _wheel_perp(blk, qa, d, r_a, r_b):
+    """The suspension's perpendicular axis and its lever arms."""
+    local_y = torch.stack([-blk.local_axis_a[..., 1], blk.local_axis_a[..., 0]], -1)
+    ay = rot_vec(qa, local_y)
+    return ay, cross_vv(d + r_a, ay), cross_vv(r_b, ay)
+
+
+def _wheel_init(blk, bodies, awake, color, dt_ratio, warm, dt):
+    com = _common(blk, bodies, awake, color)
+    qa, r_a, r_b = _anchors(blk, com, take(bodies.a, com.body_a),
+                            take(bodies.a, com.body_b))
+    d = take(bodies.c, com.body_b) + r_b - take(bodies.c, com.body_a) - r_a
+    mA, mB, iA, iB = com.m_a, com.m_b, com.i_a, com.i_b
+
+    ay, s_ay, s_by = _wheel_perp(blk, qa, d, r_a, r_b)
+    mass_raw = mA + mB + iA * s_ay ** 2 + iB * s_by ** 2
+    mass = _inv(mass_raw, mass_raw > 0.0)
+
+    ax = rot_vec(qa, blk.local_axis_a)
+    s_ax = cross_vv(d + r_a, ax)
+    s_bx = cross_vv(r_b, ax)
+    inv_m = mA + mB + iA * s_ax ** 2 + iB * s_bx ** 2
+    sm0 = _inv(inv_m, inv_m > 0.0)
+    cc = dot(d, ax)
+    omega = 2.0 * math.pi * blk.frequency
+    damp = 2.0 * sm0 * blk.damping_ratio * omega
+    k = sm0 * omega * omega
+    gamma_raw = dt * (damp + dt * k)
+    gamma = _inv(gamma_raw, gamma_raw > 0.0)
+    bias = cc * dt * k * gamma
+    sm_raw = inv_m + gamma
+    spring_mass = _inv(sm_raw, sm_raw > 0.0)
+    has_spring = (blk.frequency > 0.0) & (inv_m > 0.0)
+    spring_mass = torch.where(has_spring, spring_mass, 0.0)
+    bias = torch.where(has_spring, bias, 0.0)
+    gamma = torch.where(has_spring, gamma, 0.0)
+
+    mm_raw = iA + iB
+    motor_mass = torch.where(blk.enable_motor, _inv(mm_raw, mm_raw > 0.0), 0.0)
+
+    imp = _warm_scaled(blk.impulse, dt_ratio, warm)
+    si = torch.where(blk.frequency > 0.0,
+                     _warm_scaled(blk.spring_impulse, dt_ratio, warm), 0.0)
+    mi = torch.where(blk.enable_motor,
+                     _warm_scaled(blk.motor_impulse, dt_ratio, warm), 0.0)
+    data = WheelData(com, ax, ay, s_ax, s_bx, s_ay, s_by, mass, spring_mass,
+                     motor_mass, bias, gamma)
+    return data, {"impulse": imp, "spring_impulse": si, "motor_impulse": mi}
+
+
+def _wheel_warm(data, st, v, w):
+    com = data.com
+    imp, si, mi = st["impulse"], st["spring_impulse"], st["motor_impulse"]
+    p = imp[..., None] * data.ay + si[..., None] * data.ax
+    l_a = imp * data.s_ay + si * data.s_ax + mi
+    l_b = imp * data.s_by + si * data.s_bx + mi
+    return _apply(com, v, w, _all_lanes(com),
+                  -com.m_a[..., None] * p, -com.i_a * l_a,
+                  com.m_b[..., None] * p, com.i_b * l_b)
+
+
+def _wheel_velocity(blk, data, st, v, w, dt, mask):
+    com = data.com
+    m = mask & com.active
+    va0, wa0 = take(v, com.body_a), take(w, com.body_a)
+    vb0, wb0 = take(v, com.body_b), take(w, com.body_b)
+    va, wa, vb, wb = va0, wa0, vb0, wb0
+    mA, mB, iA, iB = com.m_a, com.m_b, com.i_a, com.i_b
+
+    # spring
+    cdot = dot(data.ax, vb - va) + data.s_bx * wb - data.s_ax * wa
+    lam = -data.spring_mass * (cdot + data.bias + data.gamma * st["spring_impulse"])
+    lam = torch.where(m, lam, 0.0)
+    si = st["spring_impulse"] + lam
+    p = lam[..., None] * data.ax
+    va = va - mA[..., None] * p
+    wa = wa - iA * lam * data.s_ax
+    vb = vb + mB[..., None] * p
+    wb = wb + iB * lam * data.s_bx
+
+    # motor
+    cdot = wb - wa - blk.motor_speed
+    lam = -data.motor_mass * cdot
+    max_i = dt * blk.max_motor_torque
+    mi_new = _clip(st["motor_impulse"] + lam, -max_i, max_i)
+    on = m & blk.enable_motor
+    dlam = torch.where(on, mi_new - st["motor_impulse"], 0.0)
+    mi = torch.where(on, mi_new, st["motor_impulse"])
+    wa = wa - iA * dlam
+    wb = wb + iB * dlam
+
+    # point on line
+    cdot = dot(data.ay, vb - va) + data.s_by * wb - data.s_ay * wa
+    lam = torch.where(m, -data.mass * cdot, 0.0)
+    imp = st["impulse"] + lam
+    p = lam[..., None] * data.ay
+    va = va - mA[..., None] * p
+    wa = wa - iA * lam * data.s_ay
+    vb = vb + mB[..., None] * p
+    wb = wb + iB * lam * data.s_by
+
+    v, w = _apply(com, v, w, mask, va - va0, wa - wa0, vb - vb0, wb - wb0)
+    return {**st, "impulse": imp, "spring_impulse": si, "motor_impulse": mi}, v, w
+
+
+def _wheel_position(blk, data, st, c, a, mask):
+    com = data.com
+    m = mask & com.active
+    qa, r_a, r_b = _anchors(blk, com, take(a, com.body_a), take(a, com.body_b))
+    d = take(c, com.body_b) - take(c, com.body_a) + r_b - r_a
+    ay, s_ay, s_by = _wheel_perp(blk, qa, d, r_a, r_b)
+    cc = dot(d, ay)
+    # the effective mass keeps the lever arms of the step's start, as in
+    # the JAX package
+    k = com.m_a + com.m_b + com.i_a * data.s_ay ** 2 + com.i_b * data.s_by ** 2
+    lam = torch.where(m & (k != 0.0), -cc / torch.where(k != 0.0, k, 1.0), 0.0)
+    p = lam[..., None] * ay
+    c, a = _scatter(com, c, a, m, -com.m_a[..., None] * p, -com.i_a * lam * s_ay,
+                    com.m_b[..., None] * p, com.i_b * lam * s_by)
+    ok = (torch.abs(cc) <= settings.LINEAR_SLOP) | ~m
+    return c, a, ok
+
+
+# ==========================================================================
+# pulley (b2PulleyJoint.cpp): two ropes over fixed ground anchors, a ratio
+# ==========================================================================
+
+
+class PulleyData(NamedTuple):
+    com: _Common
+    r_a: torch.Tensor
+    r_b: torch.Tensor
+    u_a: torch.Tensor
+    u_b: torch.Tensor
+    mass: torch.Tensor
+
+
+def _pulley_frame(blk, com, c, a):
+    """Anchor arms, rope directions and lengths, and the effective mass at
+    body centers c and angles a."""
+    _, r_a, r_b = _anchors(blk, com, take(a, com.body_a), take(a, com.body_b))
+    u_a = take(c, com.body_a) + r_a - blk.ground_anchor_a
+    u_b = take(c, com.body_b) + r_b - blk.ground_anchor_b
+    la = torch.sqrt(dot(u_a, u_a))
+    lb = torch.sqrt(dot(u_b, u_b))
+    u_a = torch.where((la > 10.0 * settings.LINEAR_SLOP)[..., None],
+                      u_a / torch.where(la > 0, la, 1.0)[..., None], 0.0)
+    u_b = torch.where((lb > 10.0 * settings.LINEAR_SLOP)[..., None],
+                      u_b / torch.where(lb > 0, lb, 1.0)[..., None], 0.0)
+    ru_a = cross_vv(r_a, u_a)
+    ru_b = cross_vv(r_b, u_b)
+    m_a = com.m_a + com.i_a * ru_a ** 2
+    m_b = com.m_b + com.i_b * ru_b ** 2
+    mass_raw = m_a + blk.ratio ** 2 * m_b
+    return r_a, r_b, u_a, u_b, la, lb, _inv(mass_raw, mass_raw > 0.0)
+
+
+def _pulley_init(blk, bodies, awake, color, dt_ratio, warm):
+    com = _common(blk, bodies, awake, color)
+    r_a, r_b, u_a, u_b, _, _, mass = _pulley_frame(blk, com, bodies.c, bodies.a)
+    return (PulleyData(com, r_a, r_b, u_a, u_b, mass),
+            {"impulse": _warm_scaled(blk.impulse, dt_ratio, warm), "ratio": blk.ratio})
+
+
+def _pulley_impulse(com, r_a, r_b, u_a, u_b, ratio, lin, ang, mask, lam):
+    pa = -lam[..., None] * u_a
+    pb = (-ratio * lam)[..., None] * u_b
+    return _scatter(com, lin, ang, mask,
+                    com.m_a[..., None] * pa, com.i_a * cross_vv(r_a, pa),
+                    com.m_b[..., None] * pb, com.i_b * cross_vv(r_b, pb))
+
+
+def _pulley_warm(data, st, v, w):
+    com = data.com
+    return _pulley_impulse(com, data.r_a, data.r_b, data.u_a, data.u_b, st["ratio"],
+                           v, w, com.active, st["impulse"])
+
+
+def _pulley_velocity(blk, data, st, v, w, dt, mask):
+    com = data.com
+    m = mask & com.active
+    vp_a = take(v, com.body_a) + cross_sv(take(w, com.body_a), data.r_a)
+    vp_b = take(v, com.body_b) + cross_sv(take(w, com.body_b), data.r_b)
+    cdot = -dot(data.u_a, vp_a) - blk.ratio * dot(data.u_b, vp_b)
+    lam = torch.where(m, -data.mass * cdot, 0.0)
+    v, w = _pulley_impulse(com, data.r_a, data.r_b, data.u_a, data.u_b, blk.ratio,
+                           v, w, m, lam)
+    return {**st, "impulse": st["impulse"] + lam}, v, w
+
+
+def _pulley_position(blk, data, st, c, a, mask):
+    com = data.com
+    m = mask & com.active
+    r_a, r_b, u_a, u_b, la, lb, mass = _pulley_frame(blk, com, c, a)
+    cc = (blk.length_a + blk.ratio * blk.length_b) - la - blk.ratio * lb
+    lam = torch.where(m, -mass * cc, 0.0)
+    c, a = _pulley_impulse(com, r_a, r_b, u_a, u_b, blk.ratio, c, a, m, lam)
+    ok = (torch.abs(cc) < settings.LINEAR_SLOP) | ~m
+    return c, a, ok
+
+
+# ==========================================================================
+# gear (b2GearJoint.cpp): couples two revolute or prismatic joints,
+# C = (coordinate1 + ratio * coordinate2) - constant = 0
+# ==========================================================================
+#
+# A gear writes to four bodies (A = joint1.bodyB, B = joint2.bodyB,
+# C = joint1.bodyA, D = joint2.bodyA) and shares bodies with the joints it
+# couples, so it stays out of the two-body coloring: after the colored
+# blocks, the gears run one slot at a time in slot order, each slot over
+# all worlds at once, as in the JAX package. Its four deltas are summed
+# (`add_rows`) where JAX adds them in turn; the two differ in the last bits
+# only where two roles are the same dynamic body.
+
+
+class GearData(NamedTuple):
+    active: torch.Tensor   # (W,J)
+    body: torch.Tensor     # (W,J,4) i64 bodies A, B, C, D
+    m: torch.Tensor        # (W,J,4) inverse masses
+    i: torch.Tensor        # (W,J,4) inverse inertias
+    m_signed: torch.Tensor  # (W,J,4) m, negated at C and D
+    i_signed: torch.Tensor
+    lc: torch.Tensor       # (W,J,4,2) local centers
+    jv_ac: torch.Tensor    # (W,J,2)
+    jv_bd: torch.Tensor
+    jw: torch.Tensor       # (W,J,4) angular Jacobian terms of A, B, C, D
+    mass: torch.Tensor
+
+
+def _gear_jacobian(blk, lc, ang):
+    """The gear's Jacobian terms at body angles `ang` (..., 4), bodies in
+    A, B, C, D order (b2GearJoint::InitVelocityConstraints,
+    b2GearJoint.cpp:169-208)."""
+    rev1 = blk.joint1_type == 0
+    rev2 = blk.joint2_type == 0
+    qa, qb, qc, qd = (rot_from_angle(ang[..., k]) for k in range(4))
+    # joint 1 (A, C), prismatic branch
+    u1 = rot_vec(qc, blk.local_axis_c)
+    r_c = rot_vec(qc, blk.local_anchor_c - lc[..., 2, :])
+    r_a = rot_vec(qa, blk.local_anchor_a - lc[..., 0, :])
+    jv_ac = torch.where(rev1[..., None], 0.0, u1)
+    jw_a = torch.where(rev1, 1.0, cross_vv(r_a, u1))
+    jw_c = torch.where(rev1, 1.0, cross_vv(r_c, u1))
+    # joint 2 (B, D), prismatic branch
+    u2 = rot_vec(qd, blk.local_axis_d)
+    r_d = rot_vec(qd, blk.local_anchor_d - lc[..., 3, :])
+    r_b = rot_vec(qb, blk.local_anchor_b - lc[..., 1, :])
+    jv_bd = torch.where(rev2[..., None], 0.0, blk.ratio[..., None] * u2)
+    jw_b = torch.where(rev2, blk.ratio, blk.ratio * cross_vv(r_b, u2))
+    jw_d = torch.where(rev2, blk.ratio, blk.ratio * cross_vv(r_d, u2))
+    return jv_ac, jv_bd, torch.stack([jw_a, jw_b, jw_c, jw_d], -1), rev1, rev2, r_a, r_b
+
+
+def _gear_mass(blk, m, i, jw, rev1, rev2):
+    """The constraint's inverse effective mass (b2GearJoint.cpp:203-208)."""
+    mass1 = torch.where(rev1, i[..., 0] + i[..., 2],
+                        m[..., 2] + m[..., 0] + i[..., 2] * jw[..., 2] ** 2
+                        + i[..., 0] * jw[..., 0] ** 2)
+    mass2 = torch.where(rev2, blk.ratio ** 2 * (i[..., 1] + i[..., 3]),
+                        blk.ratio ** 2 * (m[..., 3] + m[..., 1])
+                        + i[..., 3] * jw[..., 3] ** 2 + i[..., 1] * jw[..., 1] ** 2)
+    return mass1 + mass2
+
+
+def _gear_init(blk, bodies, awake, warm):
+    body = torch.stack([blk.body_a, blk.body_b, blk.body_c, blk.body_d],
+                       -1).clamp_min(0).long()
+    flat = body.flatten(1)
+
+    def per_body(x):
+        return take(x, flat).reshape(body.shape + x.shape[2:])
+
+    dyn = per_body(bodies.is_dynamic) & per_body(awake)
+    active = blk.active & (dyn[..., 0] | dyn[..., 1])
+    m, i, lc = per_body(bodies.inv_mass), per_body(bodies.inv_inertia), \
+        per_body(bodies.local_center)
+    jv_ac, jv_bd, jw, rev1, rev2, _, _ = _gear_jacobian(blk, lc, per_body(bodies.a))
+    mass_raw = _gear_mass(blk, m, i, jw, rev1, rev2)
+    # the reference gear does not scale its impulse by dtRatio
+    # (b2GearJoint.cpp:210-224)
+    imp = blk.impulse if warm else torch.zeros_like(blk.impulse)
+
+    def signed(x):
+        return torch.cat([x[..., :2], -x[..., 2:]], -1)
+
+    return (GearData(active, body, m, i, signed(m), signed(i), lc, jv_ac, jv_bd, jw,
+                     _inv(mass_raw, mass_raw > 0.0)),
+            {"impulse": imp})
+
+
+def _gear_apply(d, j, lin, ang, imp, jv_ac, jv_bd, jw):
+    """lin (W,N,2), ang (W,N) plus gear slot j's impulse `imp` (W,) on its
+    four bodies; jv_ac, jv_bd (W,2) and jw (W,4) are the slot's Jacobian."""
+    m, i = d.m_signed[:, j], d.i_signed[:, j]
+    jv = torch.stack([jv_ac, jv_bd, jv_ac, jv_bd], 1)                 # (W,4,2)
+    rows = torch.cat([(m * imp[:, None])[..., None] * jv,
+                      ((i * imp[:, None]) * jw)[..., None]], -1)
+    out = add_rows(torch.cat([lin, ang[..., None]], -1), d.body[:, j], rows)
+    return out[..., 0:2], out[..., 2]
+
+
+def _gear_warm(d, st, v, w):
+    for j in range(d.active.shape[1]):
+        imp = torch.where(d.active[:, j], st["impulse"][:, j], 0.0)
+        v, w = _gear_apply(d, j, v, w, imp, d.jv_ac[:, j], d.jv_bd[:, j], d.jw[:, j])
+    return v, w
+
+
+def _gear_velocity(d, st, v, w):
+    """Slot-order velocity pass (b2GearJoint.cpp:236-270)."""
+    imps = []
+    for j in range(d.active.shape[1]):
+        vb, wb = take(v, d.body[:, j]), take(w, d.body[:, j])     # (W,4,2), (W,4)
+        jw = d.jw[:, j]
+        cdot = (dot(d.jv_ac[:, j], vb[:, 0] - vb[:, 2])
+                + dot(d.jv_bd[:, j], vb[:, 1] - vb[:, 3])
+                + (jw[:, 0] * wb[:, 0] - jw[:, 2] * wb[:, 2])
+                + (jw[:, 1] * wb[:, 1] - jw[:, 3] * wb[:, 3]))
+        imp = torch.where(d.active[:, j], -d.mass[:, j] * cdot, 0.0)
+        imps.append(imp)
+        v, w = _gear_apply(d, j, v, w, imp, d.jv_ac[:, j], d.jv_bd[:, j], jw)
+    return {**st, "impulse": st["impulse"] + torch.stack(imps, 1)}, v, w
+
+
+def _gear_position(blk, d, c, a):
+    """Slot-order NGS pass (b2GearJoint.cpp:272-369). It reports no
+    convergence flag, as in the JAX package."""
+    for j in range(d.active.shape[1]):
+        sl = _slot(blk, j)
+        cb = take(c, d.body[:, j])[:, None]                   # (W,1,4,2)
+        ab = take(a, d.body[:, j])[:, None]                   # (W,1,4)
+        lc = d.lc[:, j:j + 1]
+        jv_ac, jv_bd, jw, rev1, rev2, r_a, r_b = _gear_jacobian(sl, lc, ab)
+        mass = _gear_mass(sl, d.m[:, j:j + 1], d.i[:, j:j + 1], jw, rev1, rev2)
+        # the coupled joints' coordinates at the current positions
+        # (b2GearJoint.cpp:300, 314, 324, 338)
+        pc1 = sl.local_anchor_c - lc[..., 2, :]
+        pa1 = rot_t_vec(rot_from_angle(ab[..., 2]), r_a + (cb[..., 0, :] - cb[..., 2, :]))
+        coord_a = torch.where(rev1, ab[..., 0] - ab[..., 2] - sl.reference_angle_a,
+                              dot(pa1 - pc1, sl.local_axis_c))
+        pd2 = sl.local_anchor_d - lc[..., 3, :]
+        pb2 = rot_t_vec(rot_from_angle(ab[..., 3]), r_b + (cb[..., 1, :] - cb[..., 3, :]))
+        coord_b = torch.where(rev2, ab[..., 1] - ab[..., 3] - sl.reference_angle_b,
+                              dot(pb2 - pd2, sl.local_axis_d))
+        cc = (coord_a + sl.ratio * coord_b) - sl.constant
+        imp = torch.where(d.active[:, j:j + 1] & (mass > 0.0),
+                          -cc / torch.where(mass > 0.0, mass, 1.0), 0.0)
+        c, a = _gear_apply(d, j, c, a, imp[:, 0], jv_ac[:, 0], jv_bd[:, 0], jw[:, 0])
+    return c, a
+
+
+def _slot(blk, j):
+    """Slot j of a block, as a block of one slot."""
+    return type(blk)(**{f.name: getattr(blk, f.name)[:, j:j + 1]
+                        for f in dataclasses.fields(blk)})
+
+
+# ==========================================================================
 # registry / dispatcher
 # ==========================================================================
 
-# the JAX package's solve order; the types not ported yet take their place
-# here when they come
+# the JAX package's solve order of the colored types; the gear runs after
+# them
 _SOLVE_ORDER = ("revolute", "distance", "prismatic", "mouse", "weld",
                 "friction", "rope", "motor", "wheel", "pulley")
 _INIT = {"revolute": _revolute_init, "distance": _distance_init,
-         "prismatic": _prismatic_init, "weld": _weld_init}
-_INIT_TAKES_DT = ("distance", "weld")
+         "prismatic": _prismatic_init, "mouse": _mouse_init, "weld": _weld_init,
+         "friction": _friction_init, "rope": _rope_init, "motor": _motor_init,
+         "wheel": _wheel_init, "pulley": _pulley_init}
+_INIT_TAKES_DT = ("distance", "mouse", "weld", "wheel")
 _WARM = {"revolute": _revolute_warm, "distance": _distance_warm,
-         "prismatic": _prismatic_warm, "weld": _weld_warm}
+         "prismatic": _prismatic_warm, "mouse": _mouse_warm, "weld": _weld_warm,
+         "friction": _friction_warm, "rope": _distance_warm,
+         "motor": _friction_warm, "wheel": _wheel_warm, "pulley": _pulley_warm}
 _VELOCITY = {"revolute": _revolute_velocity, "distance": _distance_velocity,
-             "prismatic": _prismatic_velocity, "weld": _weld_velocity}
+             "prismatic": _prismatic_velocity, "mouse": _mouse_velocity,
+             "weld": _weld_velocity, "friction": _friction_velocity,
+             "rope": _rope_velocity, "motor": _motor_velocity,
+             "wheel": _wheel_velocity, "pulley": _pulley_velocity}
 _POSITION = {"revolute": _revolute_position, "distance": _distance_position,
-             "prismatic": _prismatic_position, "weld": _weld_position}
+             "prismatic": _prismatic_position, "mouse": _no_position,
+             "weld": _weld_position, "friction": _no_position,
+             "rope": _rope_position, "motor": _no_position,
+             "wheel": _wheel_position, "pulley": _pulley_position}
 # what each type persists in its block
 _STORED = {"revolute": ("impulse", "motor_impulse", "limit_state"),
            "distance": ("impulse",),
            "prismatic": ("impulse", "motor_impulse", "limit_state"),
-           "weld": ("impulse",)}
+           "mouse": ("impulse",),
+           "weld": ("impulse",),
+           "friction": ("linear_impulse", "angular_impulse"),
+           "rope": ("impulse",),
+           "motor": ("linear_impulse", "angular_impulse"),
+           "wheel": ("impulse", "spring_impulse", "motor_impulse"),
+           "pulley": ("impulse",),
+           "gear": ("impulse",)}
 
 
 class JointData(NamedTuple):
-    """Per-step joint data: {name: (block, data)} in solve order, and the
-    number of joint colors in use over the batch."""
+    """Per-step joint data: {name: (block, data)} of the colored types in
+    solve order, the number of joint colors in use over the batch, and
+    the gear's (block, data) or None."""
     blocks: dict
     n_colors: int
+    gear: tuple = None
 
 
 def init_joints(joints, bodies, awake, v, w, dt, dt_ratio, warm_starting,
                 nb, max_colors, syncs: HostSyncs = None):
-    """Color all joints jointly and init the per-type data. `dt_ratio` is
-    (W,). Returns (JointData, state): state maps a block name to its
-    impulses and limit states. The coloring's rounds and the color count
-    are host reads, counted in `syncs`."""
+    """Color all joints but the gears jointly and init the per-type data.
+    `dt_ratio` is (W,). Returns (JointData, state): state maps a block
+    name to its impulses and limit states. The coloring's rounds and the
+    color count are host reads, counted in `syncs`."""
     from . import blocks as joint_blocks
     syncs = syncs or HostSyncs()
-    bl = joint_blocks(joints)
-    if not bl:
-        return JointData({}, 0), {}
-    ba = torch.cat([b.body_a for _, b in bl], 1).clamp_min(0).long()
-    bb = torch.cat([b.body_b for _, b in bl], 1).clamp_min(0).long()
-    act = torch.cat([b.active for _, b in bl], 1)
-    dyn = bodies.is_dynamic
-    col, _ = coloring.color_constraints(ba, bb, take(dyn, ba), take(dyn, bb),
-                                        act, nb, max_colors, syncs=syncs)
-    n_colors = syncs.value(col.max()) + 1
-    sizes = [b.body_a.shape[1] for _, b in bl]
-    colors = dict(zip((n for n, _ in bl), torch.split(col, sizes, 1)))
-
-    data, state = {}, {}
-    for name in _SOLVE_ORDER:
-        if name not in colors:
-            continue
-        blk = getattr(joints, name)
-        extra = (dt,) if name in _INIT_TAKES_DT else ()
-        d, s = _INIT[name](blk, bodies, awake, colors[name], dt_ratio,
-                           warm_starting, *extra)
-        data[name] = (blk, d)
-        state[name] = s
-    return JointData(data, n_colors), state
+    bl = [(n, b) for n, b in joint_blocks(joints) if n != "gear"]
+    data, state, n_colors, gear = {}, {}, 0, None
+    if bl:
+        ba = torch.cat([b.body_a for _, b in bl], 1).clamp_min(0).long()
+        bb = torch.cat([b.body_b for _, b in bl], 1).clamp_min(0).long()
+        act = torch.cat([b.active for _, b in bl], 1)
+        dyn = bodies.is_dynamic
+        col, _ = coloring.color_constraints(ba, bb, take(dyn, ba), take(dyn, bb),
+                                            act, nb, max_colors, syncs=syncs)
+        n_colors = syncs.value(col.max()) + 1
+        sizes = [b.body_a.shape[1] for _, b in bl]
+        colors = dict(zip((n for n, _ in bl), torch.split(col, sizes, 1)))
+        for name in _SOLVE_ORDER:
+            if name not in colors:
+                continue
+            blk = getattr(joints, name)
+            extra = (dt,) if name in _INIT_TAKES_DT else ()
+            d, s = _INIT[name](blk, bodies, awake, colors[name], dt_ratio,
+                               warm_starting, *extra)
+            data[name] = (blk, d)
+            state[name] = s
+    if joints.gear.body_a.shape[-1] > 0:
+        d, state["gear"] = _gear_init(joints.gear, bodies, awake, warm_starting)
+        gear = (joints.gear, d)
+    return JointData(data, n_colors, gear), state
 
 
 def warm_start_joints(jdata: JointData, jstate, v, w):
     for name, (_, d) in jdata.blocks.items():
         v, w = _WARM[name](d, jstate[name], v, w)
+    if jdata.gear is not None:
+        v, w = _gear_warm(jdata.gear[1], jstate["gear"], v, w)
     return v, w
 
 
 def solve_joint_velocity(jdata: JointData, jstate, v, w, dt):
-    """One velocity iteration over all joints, color by color."""
+    """One velocity iteration over all joints: color by color, then the
+    gears in slot order."""
     for ci in range(jdata.n_colors):
         for name, (blk, d) in jdata.blocks.items():
             st, v, w = _VELOCITY[name](blk, d, jstate[name], v, w, dt,
                                        d.com.color == ci)
             jstate = {**jstate, name: st}
+    if jdata.gear is not None:
+        st, v, w = _gear_velocity(jdata.gear[1], jstate["gear"], v, w)
+        jstate = {**jstate, "gear": st}
     return jstate, v, w
 
 
 def solve_joint_position(jdata: JointData, jstate, c, a):
-    """One NGS iteration over all joints. Returns (c, a, ok_body): a body
-    is not ok when a joint on it is still outside its tolerances."""
+    """One NGS iteration over all joints, the gears last. Returns (c, a,
+    ok_body): a body is not ok when a colored joint on it is still outside
+    its tolerances."""
     nw, nb = a.shape
     ok_body = torch.ones((nw, nb + 1), dtype=torch.bool, device=a.device)
     for ci in range(jdata.n_colors):
@@ -842,6 +1515,8 @@ def solve_joint_position(jdata: JointData, jstate, c, a):
             ok_body.scatter_(1, torch.cat([torch.where(bad, d.com.body_a, nb),
                                            torch.where(bad, d.com.body_b, nb)], 1),
                              False)
+    if jdata.gear is not None:
+        c, a = _gear_position(*jdata.gear, c, a)
     return c, a, ok_body[:, :nb]
 
 

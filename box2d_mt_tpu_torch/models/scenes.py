@@ -6,8 +6,8 @@ the caller passes another `device` (the tests pass device="cpu"). Every
 builder passes `WorldBuilder.freeze`'s capacities through, so that scenes
 frozen with equal capacities share a batch (`state.concat_worlds`).
 
-Not here yet: the scenes of the seven unported joint types, the grid
-broad phase (above 1024 fixtures), the hooks and `mutate`."""
+Not here yet: the scenes of the grid broad phase (above 1024 fixtures),
+the hooks and `mutate`."""
 
 import math
 import random
@@ -1080,4 +1080,198 @@ def sensor_drop(device="cuda", **capacity):
     wb.create_fixture(sensor_body, shapes.Polygon.box(2.0, 1.0), is_sensor=True)
     ball = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 12.0))
     wb.create_fixture(ball, shapes.Circle(0.5), density=1.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def friction_top_down(device="cuda", **capacity):
+    """Golden scene: sliding box damped by a friction joint (golden2.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    ground = wb.create_body()
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(2.0, 8.0),
+                       linear_velocity=(8.0, 3.0), angular_velocity=5.0)
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    # the reference def puts both local anchors at (0, 0)
+    wb.create_joint_raw("friction", body_a=ground, body_b=b,
+                        local_anchor_a=(0.0, 0.0), local_anchor_b=(0.0, 0.0),
+                        max_force=10.0, max_torque=10.0, collide_connected=False)
+    return wb.freeze(device=device, **capacity)
+
+
+def rope_swing(device="cuda", **capacity):
+    """Golden scene: box dropping to a 5 m rope limit (golden2.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(2.0, 8.0))
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    wb.create_rope_joint(ground, b, (0.0, 10.0), (0.0, 0.0), 5.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def motor_drive(device="cuda", **capacity):
+    """Golden scene: motor joint pulling a kicked box back (golden2.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(2.0, 8.0),
+                       linear_velocity=(5.0, 0.0))
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    wb.create_motor_joint(ground, b, max_force=1000.0, max_torque=1000.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def wheel_car(device="cuda", **capacity):
+    """Golden scene: motorized wheel and chassis on the ground
+    (golden3.cpp, after Testbed Car.h)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    wheel = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 1.0))
+    wb.create_fixture(wheel, shapes.Circle(0.4), density=1.0, friction=0.9)
+    chassis = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 2.0))
+    wb.create_fixture(chassis, shapes.Polygon.box(1.0, 0.25), density=1.0)
+    wb.create_wheel_joint(chassis, wheel, (0.0, 1.0), (0.0, 1.0),
+                          enable_motor=True, motor_speed=-10.0,
+                          max_motor_torque=20.0, frequency=4.0,
+                          damping_ratio=0.7)
+    return wb.freeze(device=device, **capacity)
+
+
+def gear_train(device="cuda", **capacity):
+    """Golden scene (golden4.cpp, after Testbed Gears.h): two circle gears
+    pinned to the ground by revolutes and coupled by a gear joint of ratio
+    r2/r1, and a vertical rack on a prismatic joint coupled to the big
+    gear with ratio -1/r2. Gravity drives the rack; the gears drive the
+    wheels."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    g1 = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                        position=(-3.5, 12.0), angular_velocity=2.0)
+    wb.create_fixture(g1, shapes.Circle(1.0), density=5.0)
+    g2 = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 12.0))
+    wb.create_fixture(g2, shapes.Circle(2.0), density=5.0)
+    rack = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(3.0, 12.0))
+    wb.create_fixture(rack, shapes.Polygon.box(0.25, 1.5), density=5.0)
+    rev1 = wb.create_revolute_joint(ground, g1, (-3.5, 12.0))
+    rev2 = wb.create_revolute_joint(ground, g2, (0.0, 12.0))
+    prism = wb.create_prismatic_joint(ground, rack, (3.0, 12.0), (0.0, 1.0),
+                                      enable_limit=True, lower_translation=-5.0,
+                                      upper_translation=5.0)
+    wb.create_gear_joint(("revolute", rev1), ("revolute", rev2), ratio=2.0)
+    wb.create_gear_joint(("revolute", rev2), ("prismatic", prism), ratio=-0.5)
+    return wb.freeze(device=device, **capacity)
+
+
+def pulley_pair(device="cuda", **capacity):
+    """Golden scene: a 1.5-ratio pulley between two boxes (golden3.cpp)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    a = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-2.0, 5.0))
+    wb.create_fixture(a, shapes.Polygon.box(0.5, 0.5), density=5.0)
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(2.0, 5.0))
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 1.0), density=5.0)
+    wb.create_pulley_joint(a, b, (-2.0, 10.0), (2.0, 10.0),
+                           (-2.0, 5.5), (2.0, 6.0), 1.5)
+    return wb.freeze(device=device, **capacity)
+
+
+def car(device="cuda", **capacity):
+    """Testbed/Tests/Car.h — a 6-vertex chassis on two wheel-jointed wheels
+    (4 Hz, 0.7 damping, rear motor on) driving over hilly edge terrain, a
+    limited revolute teeter and a 20-plank bridge, with 5 stacked boxes."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+
+    def e(a, b):
+        wb.create_fixture(ground, shapes.Edge(a, b), friction=0.6)
+
+    e((-20.0, 0.0), (20.0, 0.0))
+    hs = [0.25, 1.0, 4.0, 0.0, 0.0, -1.0, -2.0, -2.0, -1.25, 0.0]
+    x, y1, dx = 20.0, 0.0, 5.0
+    for _ in range(2):
+        for h in hs:
+            e((x, y1), (x + dx, h))
+            y1 = h
+            x += dx
+    e((x, 0.0), (x + 40.0, 0.0))
+    x += 80.0
+    e((x, 0.0), (x + 40.0, 0.0))
+    x += 40.0
+    e((x, 0.0), (x + 10.0, 5.0))
+    x += 20.0
+    e((x, 0.0), (x + 40.0, 0.0))
+    x += 40.0
+    e((x, 0.0), (x, 20.0))
+    # teeter: +-8 degree revolute limit, kicked by a 100 N*m*s angular impulse
+    teeter = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(140.0, 1.0))
+    wb.create_fixture(teeter, shapes.Polygon.box(10.0, 0.25), density=1.0)
+    md = shapes.Polygon.box(10.0, 0.25).compute_mass(1.0)
+    wb._bodies[teeter].angular_velocity = 100.0 / md.inertia
+    wb.create_revolute_joint(ground, teeter, (140.0, 1.0), enable_limit=True,
+                             lower_angle=-8.0 * math.pi / 180.0,
+                             upper_angle=8.0 * math.pi / 180.0)
+    prev = ground
+    for i in range(20):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(161.0 + 2.0 * i, -0.125))
+        wb.create_fixture(b, shapes.Polygon.box(1.0, 0.125), density=1.0,
+                          friction=0.6)
+        wb.create_revolute_joint(prev, b, (160.0 + 2.0 * i, -0.125))
+        prev = b
+    wb.create_revolute_joint(prev, ground, (160.0 + 2.0 * 20, -0.125))
+    for i in range(5):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(230.0, 0.5 + i))
+        wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=0.5)
+    chassis = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 1.0))
+    wb.create_fixture(chassis, shapes.Polygon.from_vertices(
+        [(-1.5, -0.5), (1.5, -0.5), (1.5, 0.0), (0.0, 0.9),
+         (-1.15, 0.9), (-1.5, 0.2)]), density=1.0)
+    w1 = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-1.0, 0.35))
+    wb.create_fixture(w1, shapes.Circle(0.4), density=1.0, friction=0.9)
+    w2 = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(1.0, 0.4))
+    wb.create_fixture(w2, shapes.Circle(0.4), density=1.0, friction=0.9)
+    wb.create_wheel_joint(chassis, w1, (-1.0, 0.35), (0.0, 1.0),
+                          enable_motor=True, motor_speed=-30.0,
+                          max_motor_torque=20.0, frequency=4.0,
+                          damping_ratio=0.7)
+    wb.create_wheel_joint(chassis, w2, (1.0, 0.4), (0.0, 1.0),
+                          enable_motor=False, max_motor_torque=10.0,
+                          frequency=4.0, damping_ratio=0.7)
+    return wb.freeze(device=device, **capacity)
+
+
+def apply_force(device="cuda", **capacity):
+    """Testbed/Tests/ApplyForce.h:27-144 — zero gravity, four restitution
+    walls boxing (0, 20), a damped two-triangle 'ship', and ten boxes
+    pinned by top-down friction joints (maxForce = m*g, maxTorque =
+    m*r*g)."""
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    ground = wb.create_body(position=(0.0, 20.0))
+    for v1, v2 in (((-20.0, -20.0), (-20.0, 20.0)), ((20.0, -20.0), (20.0, 20.0)),
+                   ((-20.0, 20.0), (20.0, 20.0)), ((-20.0, -20.0), (20.0, -20.0))):
+        wb.create_fixture(ground, shapes.Edge(v1, v2), restitution=0.4)
+
+    def tri(angle, flip):
+        s, c = math.sin(angle), math.cos(angle)
+        px, py = (c, s) if not flip else (-c, -s)
+        pts = [(-1.0, 0.0), (1.0, 0.0), (0.0, 0.5)]
+        return shapes.Polygon.from_vertices(
+            [(c * x - s * y + px, s * x + c * y + py) for x, y in pts])
+
+    ship = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 2.0),
+                          angle=math.pi, angular_damping=2.0, linear_damping=0.5,
+                          allow_sleep=False)
+    wb.create_fixture(ship, tri(0.3524 * math.pi, False), density=4.0)
+    wb.create_fixture(ship, tri(-0.3524 * math.pi, True), density=2.0)
+    for i in range(10):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(0.0, 5.0 + 1.54 * i))
+        wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=1.0, friction=0.3)
+        # a 1 x 1 box of density 1: m = 1, I = m * (1 + 1) / 12
+        mass = 1.0
+        inertia = mass * (1.0 ** 2 + 1.0 ** 2) / 12.0
+        radius = math.sqrt(2.0 * inertia / mass)
+        wb.create_friction_joint(ground, b, (0.0, 5.0 + 1.54 * i),
+                                 max_force=mass * 10.0,
+                                 max_torque=mass * radius * 10.0,
+                                 collide_connected=True)
     return wb.freeze(device=device, **capacity)

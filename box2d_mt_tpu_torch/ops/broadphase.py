@@ -77,10 +77,12 @@ def _forbidden_joint_keys(joints, nf: int):
     """(W, J) sorted packed body-pair keys of the active joints with
     collide_connected == False (b2Body::ShouldCollide walks the joint
     list); -2 fills the other slots. The key is lo * nf + hi in int32, as
-    in the JAX package."""
+    in the JAX package, which leaves the mouse block out of this walk."""
     from ..joints import blocks
     keys = []
-    for _, block in blocks(joints):
+    for name, block in blocks(joints):
+        if name == "mouse":
+            continue
         lo = torch.minimum(block.body_a, block.body_b)
         hi = torch.maximum(block.body_a, block.body_b)
         keys.append(torch.where(block.active & ~block.collide_connected,

@@ -10,9 +10,8 @@ Slot conventions (as in the JAX package):
   * empty fixture slots have `body == -1`
   * empty contact slots have `f_a == -1`
 
-Joints are typed blocks, one per joint class, as in the JAX package.
-Four are ported (revolute, distance, prismatic, weld); a state with a
-non-empty block of another type is refused by name.
+Joints are typed blocks, one per joint class, as in the JAX package: all
+eleven of its types, in its block order.
 """
 
 from __future__ import annotations
@@ -224,6 +223,21 @@ class PrismaticJoints:
 
 
 @_frozen
+class MouseJoints:
+    """b2MouseJoint (b2MouseJoint.h:36-129)."""
+    active: torch.Tensor
+    body_a: torch.Tensor             # unused (ground proxy), = body_b
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    target: torch.Tensor             # (W,J,2) world target
+    local_anchor_b: torch.Tensor     # (W,J,2)
+    max_force: torch.Tensor
+    frequency: torch.Tensor
+    damping_ratio: torch.Tensor
+    impulse: torch.Tensor            # (W,J,2)
+
+
+@_frozen
 class WeldJoints:
     """b2WeldJoint (b2WeldJoint.h:70-126)."""
     active: torch.Tensor
@@ -239,12 +253,131 @@ class WeldJoints:
 
 
 @_frozen
+class FrictionJoints:
+    """b2FrictionJoint (b2FrictionJoint.h:39-120)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    max_force: torch.Tensor
+    max_torque: torch.Tensor
+    linear_impulse: torch.Tensor     # (W,J,2)
+    angular_impulse: torch.Tensor    # (W,J)
+
+
+@_frozen
+class RopeJoints:
+    """b2RopeJoint (b2RopeJoint.h:39-114)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    max_length: torch.Tensor
+    impulse: torch.Tensor            # (W,J)
+
+
+@_frozen
+class MotorJoints:
+    """b2MotorJoint (b2MotorJoint.h:41-133)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    linear_offset: torch.Tensor      # (W,J,2)
+    angular_offset: torch.Tensor
+    max_force: torch.Tensor
+    max_torque: torch.Tensor
+    correction_factor: torch.Tensor
+    linear_impulse: torch.Tensor     # (W,J,2)
+    angular_impulse: torch.Tensor
+
+
+@_frozen
+class WheelJoints:
+    """b2WheelJoint (b2WheelJoint.h:77-210)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2)
+    local_anchor_b: torch.Tensor
+    local_axis_a: torch.Tensor       # (W,J,2)
+    enable_motor: torch.Tensor       # (W,J) bool
+    motor_speed: torch.Tensor
+    max_motor_torque: torch.Tensor
+    frequency: torch.Tensor
+    damping_ratio: torch.Tensor
+    impulse: torch.Tensor            # (W,J) point-on-line impulse
+    spring_impulse: torch.Tensor     # (W,J)
+    motor_impulse: torch.Tensor      # (W,J)
+
+
+@_frozen
+class PulleyJoints:
+    """b2PulleyJoint (b2PulleyJoint.h:64-151)."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    ground_anchor_a: torch.Tensor    # (W,J,2) world
+    ground_anchor_b: torch.Tensor
+    local_anchor_a: torch.Tensor
+    local_anchor_b: torch.Tensor
+    length_a: torch.Tensor
+    length_b: torch.Tensor
+    ratio: torch.Tensor
+    impulse: torch.Tensor            # (W,J)
+
+
+@_frozen
+class GearJoints:
+    """b2GearJoint (b2GearJoint.h:38-126): couples two revolute or
+    prismatic joints, named by type (0 revolute, 1 prismatic) and slot in
+    their blocks. Four bodies: A = joint1.bodyB, C = joint1.bodyA,
+    B = joint2.bodyB, D = joint2.bodyA (b2GearJoint.cpp:61-94); the coupled
+    joints' anchors, axes and reference angles are copied in at build
+    time, as the reference constructor does."""
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    collide_connected: torch.Tensor
+    body_c: torch.Tensor             # (W,J) i32 joint1.bodyA
+    body_d: torch.Tensor             # (W,J) i32 joint2.bodyA
+    joint1_type: torch.Tensor        # (W,J) i32
+    joint1_index: torch.Tensor
+    joint2_type: torch.Tensor
+    joint2_index: torch.Tensor
+    local_anchor_a: torch.Tensor     # (W,J,2) joint1's bodyB side
+    local_anchor_b: torch.Tensor     # joint2's bodyB side
+    local_anchor_c: torch.Tensor     # joint1's bodyA side
+    local_anchor_d: torch.Tensor     # joint2's bodyA side
+    local_axis_c: torch.Tensor       # (W,J,2) joint1's axis (zero if revolute)
+    local_axis_d: torch.Tensor
+    reference_angle_a: torch.Tensor
+    reference_angle_b: torch.Tensor
+    ratio: torch.Tensor
+    constant: torch.Tensor
+    impulse: torch.Tensor            # (W,J)
+
+
+@_frozen
 class Joints:
-    """The ported typed joint blocks (capacities may be zero)."""
+    """The typed joint blocks (capacities may be zero)."""
     revolute: RevoluteJoints
     distance: DistanceJoints
     prismatic: PrismaticJoints
+    mouse: MouseJoints
     weld: WeldJoints
+    friction: FrictionJoints
+    rope: RopeJoints
+    motor: MotorJoints
+    wheel: WheelJoints
+    pulley: PulleyJoints
+    gear: GearJoints
 
     @property
     def count(self):
@@ -253,10 +386,14 @@ class Joints:
                    for name, _ in JOINT_BLOCKS)
 
 
+# the JAX package's block order: it fixes the joint coloring, the island
+# edges and the cache signatures
 JOINT_BLOCKS = (("revolute", RevoluteJoints), ("distance", DistanceJoints),
-                ("prismatic", PrismaticJoints), ("weld", WeldJoints))
-# the JAX package's joint blocks that have no counterpart here yet
-UNPORTED_JOINTS = ("mouse", "friction", "rope", "motor", "wheel", "pulley", "gear")
+                ("prismatic", PrismaticJoints), ("mouse", MouseJoints),
+                ("weld", WeldJoints), ("friction", FrictionJoints),
+                ("rope", RopeJoints), ("motor", MotorJoints),
+                ("wheel", WheelJoints), ("pulley", PulleyJoints),
+                ("gear", GearJoints))
 
 
 @_frozen
@@ -311,8 +448,8 @@ def _map_block(fn, block, cls):
 
 
 def _map_joints(fn, joints) -> Joints:
-    """`fn` over the leaves of the ported blocks of `joints` (any object
-    with the JAX package's block and field names)."""
+    """`fn` over the leaves of the blocks of `joints` (any object with the
+    JAX package's block and field names)."""
     return Joints(**{name: _map_block(fn, getattr(joints, name), cls)
                      for name, cls in JOINT_BLOCKS})
 
@@ -325,16 +462,6 @@ def map_leaves(fn, state: State) -> State:
                  **{k: fn(getattr(state, k)) for k in _TOP})
 
 
-def _check_ported_joints(joints) -> None:
-    for name in UNPORTED_JOINTS:
-        block = getattr(joints, name, None)
-        if block is not None and np.size(np.asarray(block.active)) > 0:
-            raise NotImplementedError(
-                f"{name} joints are not ported yet: the state has a "
-                f"non-empty '{name}' joint block (ported: revolute, "
-                "distance, prismatic, weld)")
-
-
 def state_from_numpy(obj, device="cuda") -> State:
     """Copy a state whose leaves are numpy arrays (or anything
     `np.asarray` accepts) into a `State` of tensors on `device` (the card
@@ -345,7 +472,6 @@ def state_from_numpy(obj, device="cuda") -> State:
     leaves are COPIED: `np.asarray` of a jax array is read-only and torch
     refuses to share read-only memory. A single-world state (gravity of
     shape (2,)) gains a leading world axis of 1."""
-    _check_ported_joints(obj.joints)
     single = np.ndim(np.asarray(obj.gravity)) == 1
 
     def conv(x):

@@ -22,9 +22,8 @@ a batch of worlds, in the JAX package's phase order:
 Each `lax.cond` / `lax.while_loop` predicate of the JAX program is read
 back to the host here; `Events.host_syncs` counts those reads per step.
 
-Not ported yet, and refused rather than skipped: seven of the eleven
-joint types (revolute, distance, prismatic and weld are ported), the
-pre-solve/filter hooks, and the grid pair finder (above 1024 fixtures).
+Not ported yet, and refused rather than skipped: the pre-solve/filter
+hooks, and the grid pair finder (above 1024 fixtures).
 """
 
 from __future__ import annotations
@@ -47,8 +46,8 @@ from .joints import (_BLOCK_NAMES, build_joint_arrays, build_joints, init_joints
 from .ops.solve_middle import SANDWICH, Sandwich, solve_middle
 from .ops.toi import time_of_impact_lanes
 from .ops.sync import HostSyncs
-from .state import (UNPORTED_JOINTS, Bodies, Contacts, Fixtures, Joints,
-                    SolverCache, State, make_empty_cache)
+from .state import (Bodies, Contacts, Fixtures, Joints, SolverCache, State,
+                    make_empty_cache)
 
 
 class Events(NamedTuple):
@@ -1332,8 +1331,8 @@ class _FixtureDef:
 
 class WorldBuilder:
     """Host-side world construction; `freeze()` yields a one-world State.
-    Bodies, circle/edge/polygon/chain fixtures (sensors included) and
-    revolute, distance, prismatic and weld joints."""
+    Bodies, circle/edge/polygon/chain fixtures (sensors included) and the
+    eleven joint types."""
 
     def __init__(self, gravity=(0.0, -10.0)):
         self.gravity = tuple(gravity)
@@ -1379,8 +1378,6 @@ class WorldBuilder:
         axes, reference angles, ...), bypassing the world-anchor helpers."""
         if kind not in _BLOCK_NAMES:
             raise ValueError(f"unknown joint kind: {kind}")
-        if kind in UNPORTED_JOINTS:
-            raise NotImplementedError(f"{kind} joints are not ported yet")
         return self._add_joint(kind, **fields)
 
     def create_revolute_joint(self, body_a, body_b, anchor, *,
@@ -1445,14 +1442,129 @@ class WorldBuilder:
             frequency=frequency, damping_ratio=damping_ratio,
             collide_connected=collide_connected)
 
-    def __getattr__(self, name):
-        # the JAX package's builder methods of the joint types still to come
-        if name in {f"create_{kind}_joint" for kind in UNPORTED_JOINTS}:
-            def refuse(*args, **kwargs):
-                raise NotImplementedError(
-                    f"{name}: {name[7:-6]} joints are not ported yet")
-            return refuse
-        raise AttributeError(name)
+    def create_friction_joint(self, body_a, body_b, anchor, *,
+                              collide_connected=False, max_force=0.0,
+                              max_torque=0.0):
+        return self._add_joint(
+            "friction", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor),
+            local_anchor_b=self._to_local(body_b, anchor),
+            max_force=max_force, max_torque=max_torque,
+            collide_connected=collide_connected)
+
+    def create_rope_joint(self, body_a, body_b, local_anchor_a,
+                          local_anchor_b, max_length, *,
+                          collide_connected=False):
+        return self._add_joint(
+            "rope", body_a=body_a, body_b=body_b,
+            local_anchor_a=tuple(local_anchor_a),
+            local_anchor_b=tuple(local_anchor_b), max_length=max_length,
+            collide_connected=collide_connected)
+
+    def create_motor_joint(self, body_a, body_b, *, collide_connected=False,
+                           max_force=1.0, max_torque=1.0,
+                           correction_factor=0.3, linear_offset=None,
+                           angular_offset=None):
+        """b2MotorJointDef::Initialize defaults: the current relative
+        transform."""
+        if linear_offset is None:
+            linear_offset = self._to_local(body_a, self._bodies[body_b].position)
+        if angular_offset is None:
+            angular_offset = self._bodies[body_b].angle - self._bodies[body_a].angle
+        return self._add_joint(
+            "motor", body_a=body_a, body_b=body_b,
+            linear_offset=tuple(linear_offset), angular_offset=angular_offset,
+            max_force=max_force, max_torque=max_torque,
+            correction_factor=correction_factor,
+            collide_connected=collide_connected)
+
+    def create_mouse_joint(self, body_b, target, *, max_force=0.0,
+                           frequency=5.0, damping_ratio=0.7):
+        """b2MouseJoint: soft drag of body_b toward a world target."""
+        return self._add_joint(
+            "mouse", body_a=body_b, body_b=body_b, target=tuple(target),
+            local_anchor_b=self._to_local(body_b, target), max_force=max_force,
+            frequency=frequency, damping_ratio=damping_ratio,
+            collide_connected=True)
+
+    def create_wheel_joint(self, body_a, body_b, anchor, axis, *,
+                           collide_connected=False, enable_motor=False,
+                           motor_speed=0.0, max_motor_torque=0.0,
+                           frequency=2.0, damping_ratio=0.7):
+        return self._add_joint(
+            "wheel", body_a=body_a, body_b=body_b,
+            local_anchor_a=self._to_local(body_a, anchor),
+            local_anchor_b=self._to_local(body_b, anchor),
+            local_axis_a=self._to_local_vector(body_a, axis),
+            enable_motor=enable_motor, motor_speed=motor_speed,
+            max_motor_torque=max_motor_torque, frequency=frequency,
+            damping_ratio=damping_ratio, collide_connected=collide_connected)
+
+    def create_pulley_joint(self, body_a, body_b, ground_anchor_a,
+                            ground_anchor_b, anchor_a, anchor_b, ratio=1.0, *,
+                            collide_connected=True):
+        length_a = math.dist(anchor_a, ground_anchor_a)
+        length_b = math.dist(anchor_b, ground_anchor_b)
+        return self._add_joint(
+            "pulley", body_a=body_a, body_b=body_b,
+            ground_anchor_a=tuple(ground_anchor_a),
+            ground_anchor_b=tuple(ground_anchor_b),
+            local_anchor_a=self._to_local(body_a, anchor_a),
+            local_anchor_b=self._to_local(body_b, anchor_b),
+            length_a=length_a, length_b=length_b, ratio=ratio,
+            constant=length_a + ratio * length_b,
+            collide_connected=collide_connected)
+
+    def create_gear_joint(self, joint1, joint2, ratio=1.0, *,
+                          collide_connected=False):
+        """b2GearJoint (b2GearJoint.cpp:45-130): couples two revolute or
+        prismatic joints, each given as ("revolute" | "prismatic", index),
+        so that coordinate1 + ratio * coordinate2 keeps its build-time
+        value. Body roles as in the reference constructor: A = joint1.bodyB,
+        C = joint1.bodyA, B = joint2.bodyB, D = joint2.bodyA."""
+        (kind1, i1), (kind2, i2) = joint1, joint2
+        for kind in (kind1, kind2):
+            if kind not in ("revolute", "prismatic"):
+                raise ValueError(f"a gear couples revolute or prismatic joints, not {kind}")
+        j1, j2 = self._joints[kind1][i1], self._joints[kind2][i2]
+        coord_a, geo1 = self._gear_coordinate(kind1, j1)
+        coord_b, geo2 = self._gear_coordinate(kind2, j2)
+        return self._add_joint(
+            "gear", body_a=j1["body_b"], body_b=j2["body_b"],
+            body_c=j1["body_a"], body_d=j2["body_a"],
+            joint1_type=0 if kind1 == "revolute" else 1, joint1_index=i1,
+            joint2_type=0 if kind2 == "revolute" else 1, joint2_index=i2,
+            local_anchor_a=geo1["anchor_b"], local_anchor_c=geo1["anchor_a"],
+            local_anchor_b=geo2["anchor_b"], local_anchor_d=geo2["anchor_a"],
+            local_axis_c=geo1["axis"], local_axis_d=geo2["axis"],
+            reference_angle_a=geo1["ref"], reference_angle_b=geo2["ref"],
+            ratio=ratio, constant=coord_a + ratio * coord_b,
+            collide_connected=collide_connected)
+
+    def _gear_coordinate(self, kind, j):
+        """A coupled joint's gear coordinate at build time, from the
+        bodies' build-time transforms as the reference constructor reads
+        them (b2GearJoint.cpp:70-91, :102-123), and the geometry the gear
+        copies."""
+        bda, bdb = self._bodies[j["body_a"]], self._bodies[j["body_b"]]
+        geo = dict(anchor_a=j["local_anchor_a"], anchor_b=j["local_anchor_b"],
+                   ref=j["reference_angle"])
+        if kind == "revolute":
+            geo["axis"] = (0.0, 0.0)
+            return bdb.angle - bda.angle - j["reference_angle"], geo
+        geo["axis"] = j["local_axis_a"]
+        # pA in C's frame: MulT(xfC.q, Mul(xfA.q, anchorB) + (xfA.p - xfC.p))
+        s_c, c_c = math.sin(bda.angle), math.cos(bda.angle)
+        s_a, c_a = math.sin(bdb.angle), math.cos(bdb.angle)
+        lax_, lay_ = j["local_anchor_b"]
+        wx = c_a * lax_ - s_a * lay_ + bdb.position[0] - bda.position[0]
+        wy = s_a * lax_ + c_a * lay_ + bdb.position[1] - bda.position[1]
+        px = c_c * wx + s_c * wy
+        py = -s_c * wx + c_c * wy
+        ax_, ay_ = j["local_axis_a"]
+        coord = ((px - j["local_anchor_a"][0]) * ax_
+                 + (py - j["local_anchor_a"][1]) * ay_)
+        return coord, geo
 
     def _to_local(self, body: int, world_point):
         b = self._bodies[body]

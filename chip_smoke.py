@@ -113,9 +113,28 @@ on any failure:
      joint worlds; see ZOO_GOLDENS) as one padded batch, each held over
      the steps its JAX test reads at that test's bounds, the sensor's
      begin and end steps equal to the trace's, and falling_circle alone at
-     the 6 and 2 iterations of its trace.
+     the 6 and 2 iterations of its trace;
+ 15. mouse, friction, rope, motor, wheel, pulley and gear joints: 256 x
+     car x 120 steps (Testbed Car.h: two wheel joints and 22 revolutes,
+     circle wheels on edge terrain: K3-K6 and K2), counting the kernels'
+     launches, with no NaN, every body above y = -3 and the chassis driven
+     forward; worlds*steps/s, host syncs and CUDA kernels per step and the
+     phase split; K3-K6 held against their plain versions on its busiest
+     step (phase 10's rules) and K2 on its busiest round (phase 3's).
+     Then one batch of four copies of eight worlds (a box dragged by a
+     mouse joint to (2.0, 0.5), and TYPE_BATCH: friction_top_down,
+     apply_force, rope_swing, motor_drive, wheel_car, pulley_pair,
+     gear_train) rolled 240 steps through the kernels: each scene held to
+     its C++ golden at the JAX package's bounds (JOINT_GOLDENS), the box
+     within 0.1 m of its target by step 120; its first 20 steps again
+     through the plain versions (phase 11's rules). Car's golden is held
+     on world 0 of the car path, rolled on alone for steps 121-240. The
+     rolls that check results and time nothing (the goldens of phases 14
+     and 15) run in inference mode.
 
-The last lines are the card line, the kernels' JSON record and
+The last lines are the card line, the kernels' JSON record (launches
+counted on each main path: 512 x pyramid(10), 256 x tumbler(200) and
+256 x car, by path and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -210,6 +229,29 @@ ZOO_GOLDENS = {
 ZOO_CAPACITY = dict(body_capacity=64, fixture_capacity=128, contact_capacity=512,
                     joint_capacity={"revolute": 15, "distance": 8, "prismatic": 1,
                                     "weld": 11})
+# the goldens of the mouse, friction, rope, motor, wheel, pulley and gear
+# joints' scenes held on the card (phase 15): (golden file, bodies in the
+# trace, bound on the worst error over the 240 steps, on steps 0-129 or
+# None, on the last step or None) at the JAX package's bounds
+# (tests/test_step.py:138-177, tests/test_golden_zoo.py:159-163, :212-215)
+JOINT_GOLDENS = {
+    "friction_top_down": ("friction_240", 2, 5e-3, None, None),
+    "apply_force": ("apply_force_240", 12, 1e-4, None, None),
+    "rope_swing": ("rope_240", 2, 2e-2, None, None),
+    "motor_drive": ("motor_240", 2, 5e-3, None, None),
+    "wheel_car": ("wheel_240", 3, 5e-2, None, None),
+    "car": ("car_240", 30, 0.15, None, None),
+    "gear_train": ("gear_240", 4, 0.03, 1e-4, 1e-4),
+    "pulley_pair": ("pulley_240", 3, 1e-2, None, None),
+}
+# phase 15's batch of the joint types, after the mouse world: every golden
+# scene but car, whose golden is world 0 of the car path. One batch costs
+# less than one for each set of joint types: a step's fixed passes weigh
+# more than the padded types'
+TYPE_BATCH = ("friction_top_down", "apply_force", "rope_swing", "motor_drive", "wheel_car",
+              "pulley_pair", "gear_train")
+# car's body slots: ground, teeter, 20 bridge planks, 5 boxes, chassis, wheels
+CAR_CHASSIS = 27
 
 
 def card_line() -> str:
@@ -244,6 +286,16 @@ def roll(states, n_steps, check=None, **kw):
         if check is not None:
             check(states, ev)
     return states, syncs
+
+
+def checked_step(*args, **kw):
+    """step_batched in inference mode, for the rolls that check results
+    and time nothing: the same values, with autograd's dispatch skipped
+    on the host."""
+    import torch
+    from box2d_mt_tpu_torch.world import step_batched
+    with torch.inference_mode():
+        return step_batched(*args, **kw)
 
 
 def capture_middle(states, max_colors=MAIN["max_colors"]):
@@ -828,7 +880,7 @@ def phase_split(states, n_steps=5, **kw):
     import torch
     from box2d_mt_tpu_torch import world
     names = {"_collide_b": "collide", "_solve_middle_b": "solve middle",
-             "_continuous": "TOI phase"}
+             "_solve_sandwich_b": "solve middle", "_continuous": "TOI phase"}
     saved = {n: getattr(world, n) for n in names}
     spent = dict.fromkeys(names.values(), 0.0)
 
@@ -857,9 +909,12 @@ def phase_split(states, n_steps=5, **kw):
     return f"{1e3 * total / n_steps:.2f} ms a step ({split} ms; synchronized split)"
 
 
-def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10):
+def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=None,
+                    split=False, on_step=None):
     """The sandwich's main path on one joint scene: launch counts, health,
-    speed. Returns (record of the run, the recorder)."""
+    speed; `toi` is step_batched's time-of-impact hook, `split` adds the
+    phase split of five more steps, and `on_step(states, events)` runs
+    after each step. Returns (record of the run, the recorder)."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     from box2d_mt_tpu_torch.ops import toi as ktoi
@@ -870,13 +925,15 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10):
 
     def check(st, ev):
         overflow.copy_(torch.maximum(overflow, ev.color_overflow.max()))
+        if on_step is not None:
+            on_step(st, ev)
 
     torch.cuda.synchronize()
     counters = sm.SANDWICH + (sm.solve_middle, ktoi.time_of_impact_lanes)
     for f in counters:
         f.launches = 0
     t0 = time.perf_counter()
-    states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook())
+    states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook(), toi=toi)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(zip(SANDWICH_NAMES + ("solve_middle", "toi"),
@@ -900,6 +957,8 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10):
           f"max color overflow={int(overflow)}, "
           f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
           f"awake bodies/world={float((b.awake & (b.body_type == 2)).sum(1).float().mean()):.1f}")
+    if split:
+        print(f"phase {phase} {label}, the next 5 steps: {phase_split(states)}")
     return launches, rec
 
 
@@ -1095,7 +1154,7 @@ def zoo_goldens(dev):
     import torch
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.state import concat_worlds, map_leaves
-    from box2d_mt_tpu_torch.world import possible_kinds, step_batched
+    from box2d_mt_tpu_torch.world import possible_kinds
     names = list(ZOO_GOLDENS)
     states = concat_worlds([getattr(scenes, spec[0])(*spec[1], device=dev, **ZOO_CAPACITY)
                             for spec in ZOO_GOLDENS.values()])
@@ -1111,7 +1170,7 @@ def zoo_goldens(dev):
             alive = [alive[r] for r in rows]
             idx = torch.tensor(rows, device=dev)
             states = map_leaves(lambda t: t.index_select(0, idx), states)
-        states, ev = step_batched(states, DT, velocity_iterations=8, position_iterations=3,
+        states, ev = checked_step(states, DT, velocity_iterations=8, position_iterations=3,
                                   kinds=kinds)
         b = states.bodies
         kept.append((alive, torch.cat([b.xf_p, b.a[..., None]], -1),
@@ -1179,7 +1238,7 @@ def zoo_goldens(dev):
     ref = [json.loads(line) for line in open(ROOT / "tests/golden/circle_120.jsonl")]
     kept = []
     for _ in range(120):
-        states, ev = step_batched(states, DT, velocity_iterations=6, position_iterations=2)
+        states, ev = checked_step(states, DT, velocity_iterations=6, position_iterations=2)
         kept.append(torch.cat([states.bodies.xf_p[0, :2], states.bodies.a[0, :2, None]], -1))
     mine = torch.stack(kept).cpu().numpy()[:, ::-1]
     errs = np.abs(mine - np.asarray([[rb[:3] for rb in r["bodies"]] for r in ref])).max((1, 2))
@@ -1187,6 +1246,184 @@ def zoo_goldens(dev):
           f"{errs.max():.3g} (bound 0.5), last step {errs[-1]:.3g} (bound 0.2)")
     if not (errs.max() < 0.5 and errs[-1] < 0.2):
         raise AssertionError("falling_circle: the C++ golden is not met")
+    return worst
+
+
+def alike(builders, dev):
+    """One batch of the worlds `builder(dev, **capacity)` makes, each frozen
+    with the largest capacities of all of them."""
+    from box2d_mt_tpu_torch.state import JOINT_BLOCKS, concat_worlds
+    first = [build(dev) for build in builders]
+    cap = dict(body_capacity=max(s.bodies.capacity for s in first),
+               fixture_capacity=max(s.fixtures.capacity for s in first),
+               contact_capacity=max(s.contacts.capacity for s in first),
+               joint_capacity={name: max(getattr(s.joints, name).active.shape[1]
+                                         for s in first) for name, _ in JOINT_BLOCKS})
+    return concat_worlds([build(dev, **cap) for build in builders])
+
+
+def scene_builder(name):
+    from box2d_mt_tpu_torch.models import scenes
+    return lambda dev, **cap: getattr(scenes, name)(device=dev, **cap)
+
+
+def mouse_world(dev, **capacity):
+    """The box resting on the ground of tests/test_runtime_api.py's mouse
+    drag, held by a mouse joint (max_force 1000) at its center whose
+    target is then set to (2.0, 0.5)."""
+    import torch
+    from box2d_mt_tpu_torch import settings, shapes
+    from box2d_mt_tpu_torch.world import WorldBuilder
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 0.5))
+    wb.create_fixture(box, shapes.Polygon.box(0.5, 0.5), density=1.0, friction=0.1)
+    wb.create_mouse_joint(box, (0.0, 0.5), max_force=1000.0)
+    st = wb.freeze(device=dev, **capacity)
+    mouse = st.joints.mouse
+    target = mouse.target.clone()
+    target[:, 0] = torch.tensor([2.0, 0.5], device=target.device)
+    return dataclasses.replace(st, joints=dataclasses.replace(
+        st.joints, mouse=dataclasses.replace(mouse, target=target)))
+
+
+def car_path(dev):
+    """256 x car x 120 steps, continuous=True: K3-K6 on the car's contacts
+    and K2 on its wheels against the edge terrain. K3-K6 against their
+    plain versions on the busiest step, K2 on the busiest round; car's
+    C++ golden on world 0, rolled on alone for its last 120 steps.
+    Returns the launches, the sandwich's errors and K2's."""
+    def on_course(states):
+        b = states.bodies
+        low = float(b.c[..., 1][b.body_type == 2].min())
+        ahead = float(b.c[:, CAR_CHASSIS, 0].min())
+        print(f"phase 15 car: lowest body y {low:.3f}, chassis x in every world >= {ahead:.3f}")
+        if not (low > -3.0 and ahead > 0.5):
+            raise AssertionError(f"car: a body fell through the terrain or the car "
+                                 f"did not drive off (y {low}, chassis x {ahead})")
+
+    import torch
+    kept, last = [], []
+
+    def keep(st, ev):
+        # world 0's poses: the first half of car's golden roll
+        b = st.bodies
+        kept.append((torch.cat([b.xf_p[:1], b.a[:1, :, None]], -1), ev.color_overflow[:1]))
+        last[:] = [st]
+
+    rec_toi = Recorder()
+    launches, rec = run_joint_scene("car", None, 256, 120, dev, on_course, phase=15,
+                                    toi=rec_toi.time_of_impact, split=True, on_step=keep)
+    if launches["toi"] <= 0:
+        raise AssertionError(f"car: K2 was not launched: {launches}")
+    # the golden's other 120 steps on world 0 alone. The JAX test steps car
+    # at the default color budget; with no color overflow in any step
+    # (held_to_goldens checks it), the 16 of MAIN color it the same way
+    from box2d_mt_tpu_torch.state import map_leaves
+    states = map_leaves(lambda t: t[:1], last[0])
+    t0 = time.perf_counter()
+    for _ in range(120):
+        states, ev = checked_step(states, DT, **MAIN)
+        kept.append((torch.cat([states.bodies.xf_p, states.bodies.a[..., None]], -1),
+                     ev.color_overflow))
+    held_to_goldens(("car",), kept, time.perf_counter() - t0)
+    step = rec.busiest()
+    by_type = dict(zip(MTYPES, lanes_by_mtype(step["blob"], step["perm"],
+                                              step["color_start"]).tolist()))
+    err, _ = compare_sandwich(step, f"256 x car, busiest step, solved lanes by type "
+                                    f"{by_type}", phase=15)
+    err_k2 = compare_toi(rec_toi.busiest_toi(), "256 x car, busiest round", min_touching=1,
+                         phase=15)
+    return launches, err, err_k2
+
+
+def joint_types(dev, copies=4, compare_steps=20):
+    """The mouse world and the scenes of TYPE_BATCH, each `copies` times,
+    as one batch rolled 240 steps through the kernels at the default
+    color budget, as the JAX tests step them: each scene held to its C++
+    trace, the mouse box within 0.1 m of its target by step 120. Its
+    first compare_steps steps again through the plain versions, held to
+    the kernel path at that step (phase 11's rules). Rolled in inference
+    mode; raises when a check fails. Returns the worst errors."""
+    import torch
+    from box2d_mt_tpu_torch import settings
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import JOINT_BLOCKS, replicate
+    states = replicate(alike([mouse_world] + [scene_builder(n) for n in TYPE_BATCH], dev),
+                       copies)
+    n = 1 + len(TYPE_BATCH)
+    target = torch.tensor([2.0, 0.5], device=dev)
+    gap, kept = [], []
+
+    def track(st, ev):
+        c = st.bodies.c[0::n, 1]                             # the mouse worlds' box
+        gap.append(torch.linalg.vector_norm(c - target, dim=-1).max())
+        kept.append((torch.cat([st.bodies.xf_p, st.bodies.a[..., None]], -1)[1:n],
+                     ev.color_overflow[1:n]))
+        if len(kept) == compare_steps:
+            at_compare.append(st)
+
+    at_compare = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        roll(states, 240, check=track, max_colors=settings.MAX_COLORS)
+        ker = at_compare[0]
+        el_ker = time.perf_counter() - t0
+        pln, _ = roll(states, compare_steps, middle=sm.solve_middle_plain,
+                      toi=ktoi.time_of_impact_lanes_plain, sandwich=sm.SANDWICH_PLAIN,
+                      max_colors=settings.MAX_COLORS)
+    d = {k: (getattr(ker.bodies, k) - getattr(pln.bodies, k)).abs().max().item()
+         for k in ("c", "a", "v")}
+    d["joint impulse"] = max(
+        (getattr(getattr(ker.joints, name), f.name)
+         - getattr(getattr(pln.joints, name), f.name)).abs().max().item()
+        for name, cls in JOINT_BLOCKS for f in dataclasses.fields(cls)
+        if f.name.endswith("impulse") and getattr(ker.joints, name).active.shape[1])
+    awake_eq = bool(torch.equal(ker.bodies.awake, pln.bodies.awake))
+    gaps = torch.stack(gap).tolist()
+    within = next((i + 1 for i, g in enumerate(gaps) if g < 0.1), None)
+    print(f"phase 15 {copies} x (mouse world + {', '.join(TYPE_BATCH)}): 240 steps through "
+          f"the kernels {el_ker:.3f} s, {compare_steps} through the plain versions "
+          f"{time.perf_counter() - t0 - el_ker:.3f} s; at step {compare_steps} "
+          + " ".join(f"max|d {k}|={v:.3g}" for k, v in d.items())
+          + f" awake_equal={awake_eq}; mouse box within 0.1 m of its target from step "
+          f"{within}, {gaps[119]:.4f} m at step 120")
+    if (d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or d["joint impulse"] > 1e-4
+            or not awake_eq):
+        raise AssertionError(f"joint types: kernel path and plain path disagree: {d}")
+    if within is None or within > 120:
+        raise AssertionError(f"the mouse box did not reach its target by step 120: {gaps}")
+    return held_to_goldens(TYPE_BATCH, kept, el_ker)
+
+
+def held_to_goldens(names, kept, elapsed):
+    """World w of the roll `kept` (per step: poses (W, N, 3) and color
+    overflow (W,)) against the C++ trace of JOINT_GOLDENS[names[w]];
+    raises when a bound is missed. Returns the worst errors."""
+    import numpy as np
+    import torch
+    got = torch.stack([p for p, _ in kept]).cpu().numpy()         # (step, world, body, 3)
+    overflow = torch.stack([o for _, o in kept]).max(0).values.tolist()
+    worst = {}
+    for w, name in enumerate(names):
+        trace, n_bodies, limit, early, last = JOINT_GOLDENS[name]
+        ref = np.asarray([[rb[:3] for rb in json.loads(line)["bodies"]]
+                          for line in open(ROOT / f"tests/golden/{trace}.jsonl")])
+        errs = np.abs(got[:, w, n_bodies - 1::-1] - ref[:240]).max((1, 2))
+        worst[name] = float(errs.max())
+        ok = (errs.max() < limit and (early is None or errs[:130].max() < early)
+              and (last is None or errs[-1] < last) and overflow[w] == 0)
+        print(f"phase 15 golden {name} ({len(names)} in its batch, {elapsed:.3f} s), steps "
+              f"0-239: worst error {errs.max():.3g} (bound {limit})"
+              + ("" if early is None else f", steps 0-129 {errs[:130].max():.3g} "
+                                          f"(bound {early})")
+              + f", last step {errs[-1]:.3g}"
+              + ("" if last is None else f" (bound {last})")
+              + f", color overflow {overflow[w]}")
+        if not ok:
+            raise AssertionError(f"{name}: the C++ golden is not met")
     return worst
 
 
@@ -1528,27 +1765,35 @@ def main() -> int:
     err_sw = {k: max(v, err_p[k]) for k, v in err_sw.items()}
     zoo_goldens(dev)
     lap(14)
+    # ---- 15. mouse, friction, rope, motor, wheel, pulley and gear joints
+    launches_car, err_car, err_car_k2 = car_path(dev)
+    err_sw = {k: max(v, err_car[k]) for k, v in err_sw.items()}
+    err_k2 = max(err_k2, err_car_k2)
+    joint_types(dev)
+    lap(15)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
+    # launches: on each main path, counted from 0 just before its run;
+    # `launches` is their sum
+    paths = {"512 x pyramid(10) x 60": launches, "256 x tumbler(200) x 120": launches_t,
+             "256 x car x 120": launches_car}
     record = []
-    for name, err, m, plain, bnd in (("solve_middle", err_k1, k1_m, k1_plain, k1_bound),
-                                     ("toi", err_k2, k2_m, k2_plain, k2_bound)):
-        record.append(dict(name=name, **KERNELS[name], launches=launches[name],
-                           max_abs_err=err, ms=m["ms"], host_ms=m["host_ms"],
-                           plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                           library_ms=None))
-    for name in SANDWICH_NAMES:
-        m, plain_ms, bnd, lib_ms = sw[name]
-        record.append(dict(name=name, **KERNELS[name], launches=launches_t[name],
-                           max_abs_err=err_sw[name], ms=m["ms"], host_ms=m["host_ms"],
-                           plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                           library_ms=lib_ms))
+    for name, err, m, plain, bnd, lib_ms in (
+            ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),
+            ("toi", err_k2, k2_m, k2_plain, k2_bound, None),
+            *((name, err_sw[name], *sw[name]) for name in SANDWICH_NAMES)):
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        record.append(dict(name=name, **KERNELS[name], launches=sum(by_path.values()),
+                           launches_by_path=by_path, max_abs_err=err, ms=m["ms"],
+                           host_ms=m["host_ms"], plain_ms=plain, bound_ms=bnd[0],
+                           bound_by=bnd[1], library_ms=lib_ms))
     # the tumbler has no TOI candidate (every pair is dynamic-dynamic), so
     # of the joint scenes only the chain runs K2 as well
     if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:
         raise AssertionError(f"the chain's path missed a kernel: {launches_c}")
     print(f"phase 14 launches: 512 x sphere_stack(10) {launches_s}; 256 x pinball "
           f"{launches_p}")
+    print(f"phase 15 launches: 256 x car {launches_car}")
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The port's joints (revolute, distance, prismatic, weld) against the JAX
-package and the C++ goldens.
+"""The port's revolute, distance, prismatic and weld joints against the JAX
+package and the C++ goldens (the seven other types:
+tests/test_torch_joint_types.py).
 
   * the joint solver: one world that holds every variant (revolute and
     prismatic with limits and motors, distance and weld rigid and soft) on
@@ -13,7 +14,7 @@ package and the C++ goldens.
     sequence, may differ in the last bits);
     limit states and the per-body convergence flags are equal;
   * builder, state bridge and scenes: field-by-field equality with the JAX
-    package, the numpy round trip, refusal of an unported joint type;
+    package, the numpy round trip, refusal of an unknown joint kind;
   * forbidden pairs: jointed bodies with collide_connected=False make no
     pair, and the pair table equals the JAX package's;
   * the port alone against the C++ goldens at the bounds of the JAX
@@ -50,6 +51,8 @@ NB = 24          # bodies: slot 0 static, the rest dynamic
 MAX_COLORS = 16
 DT_RATIO = 0.9
 ATOL = 1e-5
+# the joint types of the solver world; its other blocks are empty
+FOUR_TYPES = ("revolute", "distance", "prismatic", "weld")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -135,7 +138,7 @@ def _solver_world(seed=0):
         return dataclasses.replace(blk, **kw)
 
     joints = dataclasses.replace(st.joints, **{
-        name: stored(getattr(st.joints, name)) for name, _ in JOINT_BLOCKS})
+        name: stored(getattr(st.joints, name)) for name in FOUR_TYPES})
     return dataclasses.replace(st, bodies=bodies, joints=joints)
 
 
@@ -250,6 +253,8 @@ def _joint_leaves(joints):
 
 
 def test_joint_state_round_trip_and_refusal(solved):
+    """The state bridge round-trips the joint blocks; the builder's blocks
+    equal the JAX builder's; an unknown joint kind is refused."""
     jst = solved[0]
     host = jax.tree.map(np.asarray, jst)
     st = replicate(state_from_numpy(host, device="cpu"), 3)
@@ -272,15 +277,22 @@ def test_joint_state_round_trip_and_refusal(solved):
     for name, leaf in _joint_leaves(mine):
         blk, _, f = name.partition(".")
         assert np.array_equal(leaf[0].numpy(), getattr(getattr(ref, blk), f)), name
-    # a non-empty block of a type that is not ported is refused by name
+    # a friction block crosses over from a JAX state, and a rope block
+    # built from a def equals the JAX package's
     wb = jworld.WorldBuilder()
     wb.create_body()
     b = wb.create_body(body_type=jsettings.DYNAMIC_BODY, position=(1.0, 0.0))
     wb.create_friction_joint(0, b, (0.0, 0.0), max_force=1.0, max_torque=1.0)
-    with pytest.raises(NotImplementedError, match="friction"):
-        state_from_numpy(jax.tree.map(np.asarray, wb.freeze()), device="cpu")
-    with pytest.raises(NotImplementedError, match="rope"):
-        tjoints.build_joints({"rope": [dict(body_a=0, body_b=1)]}, device="cpu")
+    host = jax.tree.map(np.asarray, wb.freeze())
+    fr = state_from_numpy(host, device="cpu").joints.friction
+    for f in dataclasses.fields(fr):
+        assert np.array_equal(getattr(fr, f.name)[0].numpy(),
+                              getattr(host.joints.friction, f.name)), f.name
+    rope = [dict(body_a=0, body_b=1, max_length=2.0)]
+    mine = tjoints.build_joints({"rope": rope}, {"rope": 2}, device="cpu").rope
+    ref = jax.tree.map(np.asarray, jbuild({"rope": rope}, {"rope": 2})).rope
+    for f in dataclasses.fields(mine):
+        assert np.array_equal(getattr(mine, f.name)[0].numpy(), getattr(ref, f.name)), f.name
     with pytest.raises(ValueError, match="unknown"):
         tjoints.build_joints({"hinge": []}, device="cpu")
 

@@ -6,6 +6,7 @@ trajectories agree (c, a to 2e-5; v, w to 1e-4) and every discrete
 quantity is equal: awake flags, the pair table, touch flags, colors and
 ranks. Contacts begin near step 13 and the stack sleeps before step 90."""
 
+import dataclasses
 import json
 
 import jax
@@ -111,7 +112,7 @@ def test_continuous_runs_and_unported_features_raise():
     assert torch.equal(st.bodies.c, sts.bodies.c)
     st, ev = tworld.step(st, DT, continuous=False)
     assert ev.host_syncs >= 1 and not bool(ev.toi_begin.any())
-    # the four ported joint types build; the seven others raise by name
+    # the joint types build and step
     wb = tworld.WorldBuilder()
     wb.create_body()
     wb.create_body(body_type=2, position=(1.0, 0.0))
@@ -125,15 +126,28 @@ def test_continuous_runs_and_unported_features_raise():
             jst.joints.prismatic.active.shape[1], jst.joints.weld.active.shape[1]) == (1, 3, 1, 2)
     jst, ev = tworld.step(jst, DT)
     assert bool(torch.isfinite(jst.bodies.c).all()) and jst.joints.count == 7
+    # each of the seven other types: the builder method and create_joint_raw
+    # give the JAX builder's block
     for kind, args in (("mouse", (1, (0.0, 0.0))), ("friction", (0, 1, (0.0, 0.0))),
                        ("rope", (0, 1, (0.0, 0.0), (0.0, 0.0), 1.0)),
                        ("motor", (0, 1)), ("wheel", (0, 1, (0.0, 0.0), (0.0, 1.0))),
                        ("pulley", (0, 1, (0.0, 1.0), (1.0, 1.0), (0.0, 0.0), (1.0, 0.0))),
                        ("gear", (("revolute", 0), ("prismatic", 0)))):
-        with pytest.raises(NotImplementedError, match=kind):
-            getattr(wb, f"create_{kind}_joint")(*args)
-        with pytest.raises(NotImplementedError, match=kind):
-            wb.create_joint_raw(kind, body_a=0, body_b=1)
+        blocks = []
+        for world, kw in ((tworld, dict(device="cpu")), (jworld, {})):
+            b = world.WorldBuilder()
+            b.create_body()
+            b.create_body(body_type=2, position=(1.0, 0.0), angle=0.3)
+            b.create_revolute_joint(0, 1, (0.0, 0.0))
+            b.create_prismatic_joint(0, 1, (0.0, 0.0), (1.0, 0.0))
+            getattr(b, f"create_{kind}_joint")(*args)
+            b.create_joint_raw(kind, body_a=0, body_b=1)
+            blocks.append(getattr(b.freeze(**kw).joints, kind))
+        mine, ref = blocks
+        assert mine.active.shape == (1, 2), kind
+        for f in dataclasses.fields(mine):
+            assert np.array_equal(getattr(mine, f.name)[0].numpy(),
+                                  np.asarray(getattr(ref, f.name))), f"{kind}.{f.name}"
     with pytest.raises(ValueError, match="unknown"):
         wb.create_joint_raw("hinge", body_a=0, body_b=1)
     with pytest.raises(NotImplementedError, match="hooks"):
