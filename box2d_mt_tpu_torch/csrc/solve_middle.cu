@@ -48,7 +48,18 @@
 //   * the overflow color's chunk deltas are applied by all threads in
 //     lane order (`apply_chunk`), not by one;
 //   * the unpack inverts perm in shared memory and writes each aux element
-//     once, 16 bytes a thread, as K6 does.
+//     once, 16 bytes a thread, as K6 does;
+//   * global planes (a world whose body planes leave no room for a ring
+//     tile of 32 lanes, or whose perm inverse does not fit beside it:
+//     above 4096 bodies or 16384 slots): the ring path with the body
+//     planes in the call's own vel_out / pos_out rows, the movable flags
+//     and the dynamic-endpoint flags read from global memory, and an
+//     unpack that zeroes the aux rows and scatters the solved lanes into
+//     them. Shared memory then holds the ring's tiles, the overflow
+//     chunk and color_start alone, whatever the world's size. The
+//     arithmetic and its order are the same; a pass's body writes reach
+//     the next pass through the world's barrier, which orders a block's
+//     global memory as it does its shared memory.
 //
 // Races: within a color the coloring makes lanes conflict-free on DYNAMIC
 // bodies only; static bodies are shared. A lane therefore writes back only
@@ -371,7 +382,8 @@ __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 // `row_floats` of staged rows, the overflow chunk's deltas and endpoints,
 // `planes` body planes (two: K1's velocities and positions, and then the
 // movable flags), color_start, the dynamic-endpoint flags in packed order.
-// ops/solve_middle.py `_world_bytes` repeats the sum.
+// No planes: the global-planes layout, whose planes and flags are in
+// global memory. ops/solve_middle.py `_world_bytes` repeats the sum.
 struct WorldLayout {
   int sd, sidx, body, mov, cs, dyn, bytes;
   __host__ __device__ WorldLayout(int row_floats, int planes, int n, int C, int mc) {
@@ -382,23 +394,25 @@ struct WorldLayout {
     mov = body + planes * align16(3 * n * 4);
     cs = mov + (planes > 1 ? align16(n) : 0);
     dyn = cs + align16((mc + 1) * 4);
-    bytes = dyn + align16(C);
+    bytes = dyn + (planes > 0 ? align16(C) : 0);
   }
 };
 
-// Staged rows of a sweep (K4, K5): `nbuf` tiles of `rows` rows.
+// Staged rows of a sweep (K4, K5): `nbuf` tiles of `rows` rows, and the
+// body plane unless it is global.
 __host__ __device__ inline WorldLayout sweep_layout(int rows, int n, int C, int mc, int tile,
-                                                    int nbuf) {
-  return WorldLayout(nbuf * rows * tile, 1, n, C, mc);
+                                                    int nbuf, bool gplanes) {
+  return WorldLayout(nbuf * rows * tile, gplanes ? 0 : 1, n, C, mc);
 }
 
 // K1: 37 resident rows of `tile` (>= C) lanes, or the ring's tiles of the
-// velocity rows (which also hold perm's inverse, C ints, for the unpack).
+// velocity rows (which also hold perm's inverse, C ints, for the unpack,
+// unless the planes are global).
 __host__ __device__ inline WorldLayout middle_layout(bool resident, int n, int C, int mc,
-                                                     int tile, int nbuf) {
+                                                     int tile, int nbuf, bool gplanes) {
   const int ring = nbuf * kVelRows * tile;
-  const int rows = resident ? kResidentRows * tile : ring > C ? ring : C;
-  return WorldLayout(rows, 2, n, C, mc);
+  const int rows = resident ? kResidentRows * tile : gplanes || ring > C ? ring : C;
+  return WorldLayout(rows, gplanes ? 0 : 2, n, C, mc);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -471,11 +485,14 @@ __device__ void apply_chunk(float* s, int n, const float* sd, const int2* sidx, 
 // chunks start at its first lane, every kChunk lanes; a chunk's lanes all
 // read the chunk-start state, and the chunk is applied once complete (a
 // chunk that straddles t1 is finished by the caller's next tile, whose
-// span starts inside it). Every pass ends at the world's barrier.
-template <bool kVelocity, class RowsAt>
+// span starts inside it). Every pass ends at the world's barrier. The
+// dynamic-endpoint flags are `sdyn`, staged in packed order, or with
+// kGlobal (global planes) the slot-order flags in global memory, read
+// through `perm`.
+template <bool kVelocity, class RowsAt, bool kGlobal = false>
 __device__ void sweep_span(const RowsAt& rows, int t0, int t1, const int* scs, int mc,
                            float* sb, int n, const uint8_t* sdyn, float* sd, int2* sidx,
-                           const Group& g, int tid, int tw) {
+                           const Group& g, int tid, int tw, const int* perm = nullptr) {
   for (int c = 0; c < mc; ++c) {
     const int c0 = scs[c], c1 = scs[c + 1];
     const int s0 = max(c0, t0), s1 = min(c1, t1);
@@ -485,7 +502,7 @@ __device__ void sweep_span(const RowsAt& rows, int t0, int t1, const int* scs, i
         float d[6];
         int ia, ib;
         solve_lane<kVelocity>(rows(p), sb, n, d, &ia, &ib);
-        const uint8_t f = sdyn[p];
+        const uint8_t f = kGlobal ? sdyn[perm[p]] : sdyn[p];
         if (f & 1) add3(sb, n, ia, d);
         if (f & 2) add3(sb, n, ib, d + 3);
       }
@@ -497,7 +514,7 @@ __device__ void sweep_span(const RowsAt& rows, int t0, int t1, const int* scs, i
           float d[6];
           int ia, ib;
           solve_lane<kVelocity>(rows(p), sb, n, d, &ia, &ib);
-          const uint8_t f = sdyn[p];
+          const uint8_t f = kGlobal ? sdyn[perm[p]] : sdyn[p];
           const int l = p - ch;
           for (int q = 0; q < 6; ++q) sd[6 * l + q] = d[q];
           sidx[l] = make_int2((f & 1) ? ia : -1, (f & 2) ? ib : -1);
@@ -550,11 +567,11 @@ __device__ void ring_start(const float* P, int C, float* srows, int total, int t
                          min(tile, total - j * tile), tile, tid, tw, aligned);
 }
 
-template <bool kVelocity>
+template <bool kVelocity, bool kGlobal = false>
 __device__ void ring_run(float* P, int C, float* srows, int total, int tile, int nbuf,
                          bool aligned, const int* scs, int mc, float* sb, int n,
                          const uint8_t* sdyn, float* sd, int2* sidx, const Group& g, int tid,
-                         int tw) {
+                         int tw, const int* perm = nullptr) {
   constexpr int kR = kVelocity ? kVelRows : kPosRows;
   const int n_tiles = (total + tile - 1) / tile;
   for (int j = 0; j < n_tiles; ++j) {
@@ -569,7 +586,8 @@ __device__ void ring_run(float* P, int C, float* srows, int total, int tile, int
     }
     g.sync();  // every thread's share of the tile is in place
     const auto rows = [=](int p) { return StagedRows<kVelocity>{T, tile, p - t0, P, C, p}; };
-    sweep_span<kVelocity>(rows, t0, t1, scs, mc, sb, n, sdyn, sd, sidx, g, tid, tw);
+    sweep_span<kVelocity, decltype(rows), kGlobal>(rows, t0, t1, scs, mc, sb, n, sdyn, sd,
+                                                   sidx, g, tid, tw, perm);
     if (j + nbuf < n_tiles) {
       g.sync();  // every thread is done with this buffer
       load_tile<kVelocity>(P, C, srows + (size_t)buf * kR * tile, (j + nbuf) * tile,
@@ -639,11 +657,25 @@ __device__ void write_aux(const int* inv, const float* const src[kAuxRows], floa
   }
 }
 
+// The solved lanes' five aux values to their slots, A[r][perm[p]] =
+// src[r][p], over rows that hold 0 (the slots no lane solved keep it).
+__device__ void scatter_aux(const int* pw, int total, int C, const float* const src[kAuxRows],
+                            float* A, int tid, int tw) {
+  for (int p = tid; p < total; p += tw) {
+    const int slot = pw[p];
+    if ((unsigned)slot < (unsigned)C)
+      for (int r = 0; r < kAuxRows; ++r) A[(size_t)r * C + slot] = src[r][p];
+  }
+}
+
 // K1, a block of `tw` threads a world. Resident path (`resident`): the
 // world's table lives in shared memory for the whole call, `tile` (>= C)
 // lanes a row. Ring path: the
 // table lives in a global scratch (W, 52, C), which every sweep walks
-// through shared memory in tiles of `tile` lanes, as K4 and K5 do.
+// through shared memory in tiles of `tile` lanes, as K4 and K5 do; with
+// kGlobal (global planes), the body planes are vel_out's and pos_out's
+// rows. The shared-memory instantiation is the code it was before.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
                     const int* __restrict__ color_start, const uint8_t* __restrict__ dyn_ab,
@@ -653,7 +685,7 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
                     int n, int C, int mc, int vi, int pi, float dt, int tw, int resident,
                     int tile, int nbuf, int aligned, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const WorldLayout lay = middle_layout(resident, n, C, mc, tile, nbuf);
+  const WorldLayout lay = middle_layout(resident, n, C, mc, tile, nbuf, kGlobal);
   const int tid = threadIdx.x, w = blockIdx.x;
   unsigned char* base = smem_raw;
   float* T = reinterpret_cast<float*>(base);                 // the table, or the ring's tiles
@@ -673,12 +705,16 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
   float* P = resident ? nullptr : scratch + (size_t)w * kScratchRows * C;
   const size_t bo = (size_t)w * 3 * n;
   const int total = min(cs[mc], C);
+  if constexpr (kGlobal) {  // the planes in global memory
+    sv = vel_out + bo;
+    sp = pos_out + bo;
+  }
 
   // pack: resident, the solved lanes' velocity rows gathered through perm
   // by 4-byte asynchronous copies; ring, every row into the global table
   for (int p = tid; p < total; p += tw) {
     const int slot = pw[p];
-    sdyn[p] = dyn[slot];
+    if constexpr (!kGlobal) sdyn[p] = dyn[slot];
     if (resident) {
       for (int k = 0; k < kVelRows; ++k)
         cp_async4(T + k * tile + p, B + (size_t)table_row<true>(k) * C + slot);
@@ -694,7 +730,8 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
     sv[i] = vel[bo + i];
     sp[i] = pos[bo + i];
   }
-  for (int i = tid; i < n; i += tw) smov[i] = movable[(size_t)w * n + i];
+  if constexpr (!kGlobal)
+    for (int i = tid; i < n; i += tw) smov[i] = movable[(size_t)w * n + i];
   cp_async_wait<0>();
   // ring: the table's stores are in L2, where the tiles' copies read,
   // before any thread stages from it; so are a sweep's before the next's
@@ -707,8 +744,12 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
       sweep_span<true>(vrows, 0, total, scs, mc, sv, n, sdyn, sd, sidx, g, tid, tw);
     } else {
       ring_start<true>(P, C, T, total, tile, nbuf, tid, tw, aligned);
-      ring_run<true>(P, C, T, total, tile, nbuf, aligned, scs, mc, sv, n, sdyn, sd, sidx, g,
-                     tid, tw);
+      if constexpr (kGlobal)  // the flags in slot order, through perm
+        ring_run<true, true>(P, C, T, total, tile, nbuf, aligned, scs, mc, sv, n, dyn, sd, sidx,
+                             g, tid, tw, pw);
+      else
+        ring_run<true>(P, C, T, total, tile, nbuf, aligned, scs, mc, sv, n, sdyn, sd, sidx, g,
+                       tid, tw);
       __threadfence();
     }
     g.sync();
@@ -726,7 +767,7 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
     cp_async_commit();
     for (int i = tid; i < C; i += tw) inv[i] = -1;
   }
-  integrate_bodies(sv, sp, smov, n, dt, tid, tw);
+  integrate_bodies(sv, sp, kGlobal ? movable + (size_t)w * n : smov, n, dt, tid, tw);
   g.sync();
   if (resident) {
     invert_perm(pw, total, C, inv, tid, tw);
@@ -740,13 +781,26 @@ solve_middle_kernel(const float* __restrict__ blob, const int* __restrict__ perm
       sweep_span<false>(prows, 0, total, scs, mc, sp, n, sdyn, sd, sidx, g, tid, tw);
     } else {
       ring_start<false>(P, C, T, total, tile, nbuf, tid, tw, aligned);
-      ring_run<false>(P, C, T, total, tile, nbuf, aligned, scs, mc, sp, n, sdyn, sd, sidx, g,
-                      tid, tw);
+      if constexpr (kGlobal)
+        ring_run<false, true>(P, C, T, total, tile, nbuf, aligned, scs, mc, sp, n, dyn, sd,
+                              sidx, g, tid, tw, pw);
+      else
+        ring_run<false>(P, C, T, total, tile, nbuf, aligned, scs, mc, sp, n, sdyn, sd, sidx, g,
+                        tid, tw);
       __threadfence();
     }
     g.sync();
   }
 
+  if constexpr (kGlobal) {  // the planes are the outputs; the aux rows: zero, then scatter
+    const float* src[kAuxRows];
+    for (int r = 0; r < kAuxRows; ++r) src[r] = P + (size_t)(r < 4 ? 47 + r : kMinSepRow) * C;
+    float* A = aux + (size_t)w * kAuxRows * C;
+    for (int i = tid; i < kAuxRows * C; i += tw) A[i] = 0.0f;
+    g.sync();
+    scatter_aux(pw, total, C, src, A, tid, tw);
+    return;
+  }
   for (int i = tid; i < 3 * n; i += tw) {
     vel_out[bo + i] = sv[i];
     pos_out[bo + i] = sp[i];
@@ -831,8 +885,13 @@ pack_packed_kernel(const float* __restrict__ blob, const int* __restrict__ perm,
 // Races: as K1's. An overflow chunk that straddles a tile border computes
 // all its lanes from the chunk-start state (nothing is applied in between)
 // and is applied once complete.
+//
+// Global planes (kGlobal, a world whose body plane and flags do not fit
+// a block beside a ring of tiles; above 8192 bodies): as K1's, the plane
+// is body_out's rows, filled from body_in at entry, and the flags are
+// read through perm.
 
-template <bool kVelocity>
+template <bool kVelocity, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
                    const int* __restrict__ color_start,
@@ -841,7 +900,8 @@ iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
                    int n_worlds, int n, int C, int mc, int tw, int tile, int nbuf,
                    int aligned) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const WorldLayout lay = sweep_layout(kVelocity ? kVelRows : kPosRows, n, C, mc, tile, nbuf);
+  const WorldLayout lay =
+      sweep_layout(kVelocity ? kVelRows : kPosRows, n, C, mc, tile, nbuf, kGlobal);
   const int group = threadIdx.x / tw, tid = threadIdx.x - group * tw;
   unsigned char* base = smem_raw + (size_t)group * lay.bytes;
   float* srows = reinterpret_cast<float*>(base);
@@ -861,14 +921,21 @@ iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
   const uint8_t* dyn = dyn_ab + (size_t)w * C;
   const size_t bo = (size_t)w * 3 * n;
   const int total = min(cs[mc], C);
+  if constexpr (kGlobal) sb = body_out + bo;
 
   ring_start<kVelocity>(P, C, srows, total, tile, nbuf, tid, tw, aligned);
   for (int i = tid; i <= mc; i += tw) scs[i] = cs[i];
   for (int i = tid; i < 3 * n; i += tw) sb[i] = body_in[bo + i];
-  for (int p = tid; p < total; p += tw) sdyn[p] = dyn[pw[p]];
-  ring_run<kVelocity>(P, C, srows, total, tile, nbuf, aligned, scs, mc, sb, n, sdyn, sd, sidx,
-                      g, tid, tw);
-  for (int i = tid; i < 3 * n; i += tw) body_out[bo + i] = sb[i];
+  if constexpr (!kGlobal)
+    for (int p = tid; p < total; p += tw) sdyn[p] = dyn[pw[p]];
+  if constexpr (kGlobal)
+    ring_run<kVelocity, true>(P, C, srows, total, tile, nbuf, aligned, scs, mc, sb, n, dyn, sd,
+                              sidx, g, tid, tw, pw);
+  else
+    ring_run<kVelocity>(P, C, srows, total, tile, nbuf, aligned, scs, mc, sb, n, sdyn, sd, sidx,
+                        g, tid, tw);
+  if constexpr (!kGlobal)
+    for (int i = tid; i < 3 * n; i += tw) body_out[bo + i] = sb[i];
 }
 
 // ---- K6: impulses and min_sep back to slot order ---------------------------
@@ -882,18 +949,37 @@ iter_packed_kernel(float* __restrict__ packed, const int* __restrict__ perm,
 // world's five rows are spread over gridDim.y blocks, each rebuilding the
 // inverse, as far as it takes to fill the card with a small batch; for
 // small C a block takes several worlds (ops/solve_middle.py
-// `unpack_shape`).
+// `unpack_shape`). Where a world's inverse does not fit a block's shared
+// memory (C above 58112 slots), a block zeroes its aux rows and scatters
+// the solved lanes into them instead (`scatter`, no shared memory).
 constexpr int kUnpackMaxWorlds = 8;
+constexpr int kSmemBlockMax = 232448;   // shared memory a block may take (H100)
 
 __global__ void __launch_bounds__(kThreads)
 unpack_packed_kernel(const float* __restrict__ packed, const int* __restrict__ perm,
                      const int* __restrict__ color_start, float* __restrict__ aux,
-                     int n_worlds, int C, int mc, int wpb, int vec) {
+                     int n_worlds, int C, int mc, int wpb, int vec, int scatter) {
   extern __shared__ __align__(16) int inv[];   // wpb x C
   __shared__ int totals[kUnpackMaxWorlds];
   const int w0 = blockIdx.x * wpb;
   const int nw = min(wpb, n_worlds - w0);
   const int tid = threadIdx.x;
+  if (scatter) {  // one world a block
+    const int total = min(color_start[(size_t)w0 * (mc + 1) + mc], C);
+    const int* pw = perm + (size_t)w0 * C;
+    for (int r = blockIdx.y; r < kAuxRows; r += gridDim.y) {
+      float* A = aux + ((size_t)w0 * kAuxRows + r) * C;
+      const float* src =
+          packed + ((size_t)w0 * kScratchRows + (r < 4 ? 47 + r : kMinSepRow)) * C;
+      for (int i = tid; i < C; i += blockDim.x) A[i] = 0.0f;
+      __syncthreads();
+      for (int p = tid; p < total; p += blockDim.x) {
+        const int slot = pw[p];
+        if ((unsigned)slot < (unsigned)C) A[slot] = src[p];
+      }
+    }
+    return;
+  }
   if (tid < nw) totals[tid] = min(color_start[(size_t)(w0 + tid) * (mc + 1) + mc], C);
   for (int i = tid; i < nw * C; i += blockDim.x) inv[i] = -1;
   __syncthreads();
@@ -951,20 +1037,21 @@ template <bool kVelocity>
 int iter_packed_launch(float* packed, const int* perm, const int* color_start,
                        const uint8_t* dyn_ab, const float* body_in, float* body_out,
                        int n_worlds, int n_bodies, int n_contacts, int max_colors,
-                       int tw, int wpb, int tile, int nbuf, void* stream) {
+                       int tw, int wpb, int tile, int nbuf, int gplanes, void* stream) {
   if (n_worlds <= 0) return 0;
   if (bad_group(tw, wpb) || tile < 32 || tile % 32 != 0 || nbuf < 1)
     return (int)cudaErrorInvalidValue;
   const WorldLayout lay = sweep_layout(kVelocity ? kVelRows : kPosRows, n_bodies, n_contacts,
-                                       max_colors, tile, nbuf);
+                                       max_colors, tile, nbuf, gplanes);
   const size_t smem = (size_t)wpb * lay.bytes;
-  const cudaError_t e = allow_smem(iter_packed_kernel<kVelocity>, smem);
+  const auto kernel =
+      gplanes ? iter_packed_kernel<kVelocity, true> : iter_packed_kernel<kVelocity, false>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int aligned = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-  iter_packed_kernel<kVelocity>
-      <<<(n_worlds + wpb - 1) / wpb, tw * wpb, smem, (cudaStream_t)stream>>>(
-          packed, perm, color_start, dyn_ab, body_in, body_out, n_worlds, n_bodies,
-          n_contacts, max_colors, tw, tile, nbuf, aligned);
+  kernel<<<(n_worlds + wpb - 1) / wpb, tw * wpb, smem, (cudaStream_t)stream>>>(
+      packed, perm, color_start, dyn_ab, body_in, body_out, n_worlds, n_bodies, n_contacts,
+      max_colors, tw, tile, nbuf, aligned);
   return (int)cudaGetLastError();
 }
 
@@ -972,7 +1059,8 @@ int iter_packed_launch(float* packed, const int* perm, const int* color_start,
 
 // K1. `resident`: the resident path, `tile` lanes a row (>= n_contacts,
 // a multiple of 4), no scratch; otherwise the ring path over `scratch`
-// (W, 52, C) with `n_buffers` tiles of `tile` lanes. The shape comes from
+// (W, 52, C) with `n_buffers` tiles of `tile` lanes, and with
+// `global_planes` the body planes in global memory. The shape comes from
 // ops/solve_middle.py `middle_shape`.
 extern "C" int solve_middle_launch(const float* blob, const int* perm,
                                    const int* color_start, const uint8_t* dyn_ab,
@@ -982,20 +1070,21 @@ extern "C" int solve_middle_launch(const float* blob, const int* perm,
                                    int n_worlds, int n_bodies, int n_contacts,
                                    int max_colors, int velocity_iterations,
                                    int position_iterations, int threads_per_world,
-                                   int resident, int tile, int n_buffers, float dt,
-                                   void* stream) {
+                                   int resident, int tile, int n_buffers, int global_planes,
+                                   float dt, void* stream) {
   if (n_worlds <= 0) return 0;
   const int tw = threads_per_world;
   if (bad_group(tw, 1) || tile < n_contacts * resident || tile % 4 != 0 || n_buffers < 1 ||
-      (!resident && (scratch == nullptr || tile % 32 != 0)))
+      (!resident && (scratch == nullptr || tile % 32 != 0)) || (resident && global_planes))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      middle_layout(resident, n_bodies, n_contacts, max_colors, tile, n_buffers).bytes;
+  const size_t smem = middle_layout(resident, n_bodies, n_contacts, max_colors, tile,
+                                    n_buffers, global_planes).bytes;
   const int vec = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(aux) % 16 == 0;
-  const cudaError_t e = allow_smem(solve_middle_kernel, smem);
+  const auto kernel = global_planes ? solve_middle_kernel<true> : solve_middle_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int aligned = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
-  solve_middle_kernel<<<n_worlds, tw, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_worlds, tw, smem, (cudaStream_t)stream>>>(
       blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out, aux, scratch,
       n_bodies, n_contacts, max_colors, velocity_iterations, position_iterations, dt, tw,
       resident, tile, n_buffers, aligned, vec);
@@ -1005,8 +1094,10 @@ extern "C" int solve_middle_launch(const float* blob, const int* perm,
 // One world's shared memory in K1, as the kernel lays it out (the
 // card-only tests hold ops/solve_middle.py's copy of the sum to it).
 extern "C" int middle_world_smem_bytes(int resident, int n_bodies, int n_contacts,
-                                       int max_colors, int tile, int n_buffers) {
-  return middle_layout(resident, n_bodies, n_contacts, max_colors, tile, n_buffers).bytes;
+                                       int max_colors, int tile, int n_buffers,
+                                       int global_planes) {
+  return middle_layout(resident, n_bodies, n_contacts, max_colors, tile, n_buffers,
+                       global_planes).bytes;
 }
 
 extern "C" int empty_launch(void* stream) {
@@ -1029,11 +1120,12 @@ extern "C" int vel_iter_packed_launch(float* packed, const int* perm,
                                       const float* vel, float* vel_out, int n_worlds,
                                       int n_bodies, int n_contacts, int max_colors,
                                       int threads_per_world, int worlds_per_block,
-                                      int tile, int n_buffers, void* stream) {
+                                      int tile, int n_buffers, int global_planes,
+                                      void* stream) {
   return iter_packed_launch<true>(packed, perm, color_start, dyn_ab, vel, vel_out,
                                   n_worlds, n_bodies, n_contacts, max_colors,
                                   threads_per_world, worlds_per_block, tile, n_buffers,
-                                  stream);
+                                  global_planes, stream);
 }
 
 extern "C" int pos_iter_packed_launch(float* packed, const int* perm,
@@ -1041,19 +1133,21 @@ extern "C" int pos_iter_packed_launch(float* packed, const int* perm,
                                       const float* pos, float* pos_out, int n_worlds,
                                       int n_bodies, int n_contacts, int max_colors,
                                       int threads_per_world, int worlds_per_block,
-                                      int tile, int n_buffers, void* stream) {
+                                      int tile, int n_buffers, int global_planes,
+                                      void* stream) {
   return iter_packed_launch<false>(packed, perm, color_start, dyn_ab, pos, pos_out,
                                    n_worlds, n_bodies, n_contacts, max_colors,
                                    threads_per_world, worlds_per_block, tile, n_buffers,
-                                   stream);
+                                   global_planes, stream);
 }
 
 // One world's shared memory in a sweep, as the kernel lays it out (the
 // card-only tests hold ops/solve_middle.py's copy of the sum to it).
 extern "C" int sweep_world_smem_bytes(int velocity, int n_bodies, int n_contacts,
-                                      int max_colors, int tile, int n_buffers) {
+                                      int max_colors, int tile, int n_buffers,
+                                      int global_planes) {
   return sweep_layout(velocity ? kVelRows : kPosRows, n_bodies, n_contacts, max_colors, tile,
-                      n_buffers).bytes;
+                      n_buffers, global_planes).bytes;
 }
 
 extern "C" int unpack_packed_launch(const float* packed, const int* perm,
@@ -1064,13 +1158,16 @@ extern "C" int unpack_packed_launch(const float* packed, const int* perm,
   if (worlds_per_block < 1 || worlds_per_block > kUnpackMaxWorlds || grid_y < 1 ||
       grid_y > kAuxRows)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)worlds_per_block * n_contacts * sizeof(int);
+  size_t smem = (size_t)worlds_per_block * n_contacts * sizeof(int);
+  const int scatter = smem > (size_t)kSmemBlockMax;
+  if (scatter && worlds_per_block != 1) return (int)cudaErrorInvalidValue;
+  if (scatter) smem = 0;
   const cudaError_t e = allow_smem(unpack_packed_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int vec = n_contacts % 4 == 0 && reinterpret_cast<uintptr_t>(aux) % 16 == 0;
   const dim3 grid((n_worlds + worlds_per_block - 1) / worlds_per_block, grid_y);
   unpack_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       packed, perm, color_start, aux, n_worlds, n_contacts, max_colors,
-      worlds_per_block, vec);
+      worlds_per_block, vec, scatter);
   return (int)cudaGetLastError();
 }

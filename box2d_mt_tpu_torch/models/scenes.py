@@ -6,11 +6,14 @@ the caller passes another `device` (the tests pass device="cpu"). Every
 builder passes `WorldBuilder.freeze`'s capacities through, so that scenes
 frozen with equal capacities share a batch (`state.concat_worlds`).
 
-Not here yet: the scenes of the grid broad phase (above 1024 fixtures),
-the hooks and `mutate`."""
+Not here yet: the scenes of the hooks and `mutate`."""
 
+import dataclasses
 import math
 import random
+
+import numpy as np
+import torch
 
 from .. import settings, shapes
 from ..world import WorldBuilder
@@ -1275,3 +1278,192 @@ def apply_force(device="cuda", **capacity):
                                  max_torque=mass * radius * 10.0,
                                  collide_connected=True)
     return wb.freeze(device=device, **capacity)
+
+
+def many_bodies(n=10000, spacing=2.2, device="cuda", **capacity):
+    """Testbed/Tests/ManyBodies.h analog: n small boxes in a sparse falling
+    grid over a wide ground, the broad-phase and scaling load (the
+    reference runs up to 50k bodies, ManyBodies.h:335-427)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    cols = int(math.ceil(math.sqrt(n)))
+    half = 0.5 * cols * spacing + 10.0
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-half, 0.0), (half, 0.0)))
+    box = shapes.Polygon.box(0.5, 0.5)
+    for i in range(n):
+        r, c = divmod(i, cols)
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=((c - 0.5 * cols) * spacing, 2.0 + r * spacing))
+        wb.create_fixture(b, box, density=1.0, friction=0.3)
+    return wb.freeze(device=device, **capacity)
+
+
+def multithread_demo(n_boxes=2800, device="cuda", **capacity):
+    """Testbed/Tests/MultithreadDemo.h analog: a container full of boxes
+    (the reference's headline multithreaded load, MultithreadDemo.h:26)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-52.0, 0.0), (52.0, 0.0)))
+    wb.create_fixture(ground, shapes.Edge((-52.0, 0.0), (-52.0, 120.0)))
+    wb.create_fixture(ground, shapes.Edge((52.0, 0.0), (52.0, 120.0)))
+    box = shapes.Polygon.box(0.5, 0.5)
+    cols = 100
+    for i in range(n_boxes):
+        r, c = divmod(i, cols)
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=((c - 0.5 * cols) * 1.02 + 0.255 * (r % 2),
+                                     1.02 + r * 1.02))
+        wb.create_fixture(b, box, density=1.0, friction=0.3)
+    return wb.freeze(device=device, **capacity)
+
+
+def tiles(rows=20, ground_n=200, ground_m=10, device="cuda", **capacity):
+    """Testbed/Tests/Tiles.h: a pyramid of boxes on a ground made of
+    ground_n x ground_m square tile fixtures (the broad phase's
+    fixture-count load)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    a = 0.5
+    ground = wb.create_body(position=(0.0, -a))
+    y = 0.0
+    for _ in range(ground_m):
+        x = -ground_n * a
+        for _ in range(ground_n):
+            wb.create_fixture(ground, shapes.Polygon.box(a, a, (x, y), 0.0))
+            x += 2.0 * a
+        y -= 2.0 * a
+    box = shapes.Polygon.box(a, a)
+    x = (-7.0, 0.75)
+    for i in range(rows):
+        yv = x
+        for _ in range(i, rows):
+            b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=yv)
+            wb.create_fixture(b, box, density=5.0)
+            yv = (yv[0] + 1.125, yv[1])
+        x = (x[0] + 0.5625, x[1] + 1.25)
+    return wb.freeze(device=device, **capacity)
+
+
+def many_bodies_impl(floaters=60, bullets=0, sleepers=0, static_boxes=0,
+                     static_edges=0, static_sensors=0, border=100.0,
+                     speed_per_radius=8.0, thick_threshold=1.0,
+                     min_static=2.0, max_static=10.0, thick_walls=True,
+                     seed=0, device="cuda", **capacity):
+    """ManyBodiesImpl analog (ManyBodies.h:70-313): zero gravity, a
+    thick-walled border box, random static boxes, edges and sensors, and
+    circle and polygon floaters launched at a speed proportional to their
+    radius (bullets at 120 m/s, the least radius, density 25); sleepers
+    start at rest, damped.
+
+    Returns (state, aux): aux = {"target_speed": (1, N) f32, "floater":
+    (1, N) bool} on the state's device, for `floater_drive`."""
+    rng = random.Random(seed)
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    ground = wb.create_body()
+    bw = 5.0
+    for cx, cy, hx, hy in ((0.0, border, border, bw), (0.0, -border, border, bw),
+                           (border, 0.0, bw, border), (-border, 0.0, bw, border)):
+        wb.create_fixture(ground, shapes.Polygon.box(hx, hy, (cx, cy), 0.0),
+                          thick_shape=thick_walls)
+    pos_range = border - bw - max_static
+    for _ in range(static_boxes):
+        hx = rng.uniform(min_static, max_static)
+        hy = rng.uniform(min_static, max_static)
+        x = rng.uniform(-pos_range, pos_range)
+        y = rng.uniform(-pos_range, pos_range)
+        a = rng.uniform(0.0, 2.0 * math.pi)
+        wb.create_fixture(ground, shapes.Polygon.box(hx, hy, (x, y), a),
+                          thick_shape=thick_walls)
+    for _ in range(static_sensors):
+        x = rng.uniform(-pos_range, pos_range)
+        y = rng.uniform(-pos_range, pos_range)
+        wb.create_fixture(ground, shapes.Polygon.box(max_static, max_static, (x, y), 0.0),
+                          is_sensor=True)
+    for _ in range(static_edges):
+        hx = rng.uniform(min_static, max_static)
+        x = rng.uniform(-pos_range, pos_range)
+        y = rng.uniform(-pos_range, pos_range)
+        a = rng.uniform(0.0, 2.0 * math.pi)
+        c, s = math.cos(a), math.sin(a)
+        wb.create_fixture(ground, shapes.Edge((x - c * hx, y - s * hx),
+                                              (x + c * hx, y + s * hx)))
+
+    n_total = floaters + sleepers
+    speeds, is_floater = [], []
+    pos_range_f = border - bw
+    for i in range(n_total):
+        radius = rng.uniform(0.5, 5.0)
+        speed = speed_per_radius * radius
+        x = rng.uniform(-pos_range_f, pos_range_f)
+        y = rng.uniform(-pos_range_f, pos_range_f)
+        a = rng.uniform(0.0, 2.0 * math.pi)
+        density = 1.0
+        bullet = False
+        if i < bullets:
+            speed, radius, bullet, density = 120.0, 0.5, True, 25.0
+        if i < floaters:
+            nx, ny = rng.random(), rng.random()
+            nl = math.sqrt(nx * nx + ny * ny) or 1.0
+            vel = (speed * nx / nl, speed * ny / nl)
+            lin_damp = 0.0
+        else:
+            vel, lin_damp, density = (0.0, 0.0), 0.5, 5.0
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(x, y),
+                           angle=a, linear_velocity=vel, bullet=bullet,
+                           linear_damping=lin_damp, angular_damping=0.25)
+        if i % 2 == 0:
+            shape = shapes.Circle(radius)
+        else:
+            nverts = max(3, min(i % settings.MAX_POLYGON_VERTICES, 8))
+            arc = 2.0 * math.pi / nverts
+            shape = shapes.Polygon.from_vertices(
+                [(radius * math.cos((v + 1.0) * arc), radius * math.sin((v + 1.0) * arc))
+                 for v in range(nverts)])
+        wb.create_fixture(b, shape, density=density, thick_shape=radius > thick_threshold)
+        speeds.append(speed if i < floaters else 0.0)
+        is_floater.append(i < floaters)
+    state = wb.freeze(device=device, **capacity)
+    cap = state.bodies.capacity
+    tspeed = np.zeros((1, cap), np.float32)
+    fmask = np.zeros((1, cap), bool)
+    tspeed[0, 1:1 + n_total] = speeds          # body 0 is the ground
+    fmask[0, 1:1 + n_total] = is_floater
+    dev = state.bodies.v.device
+    return state, {"target_speed": torch.from_numpy(tspeed).to(dev),
+                   "floater": torch.from_numpy(fmask).to(dev)}
+
+
+def floater_drive(state, aux, dt, bullet_unbounded=True):
+    """UpdateFloaterTask analog (ManyBodies.h:29-68), between steps: each
+    floater accelerates toward its target speed along its velocity
+    (non-bullets by at most speed * dt / 2, kAccelerationTime = 2). The
+    impulse does not wake a body, so sleeping floaters keep still. Over
+    the world axis; aux rows (W or 1, N); no host read."""
+    b = state.bodies
+    v = b.v
+    speed = torch.sqrt((v * v).sum(-1))
+    n = v / torch.clamp_min(speed, 1e-12)[..., None]
+    tgt = aux["target_speed"]
+    max_acc = torch.where(b.bullet & bullet_unbounded, tgt, tgt * dt * 0.5)
+    acc = torch.minimum(torch.maximum(tgt - speed, -max_acc), max_acc)
+    ok = aux["floater"] & b.awake & (b.body_type == settings.DYNAMIC_BODY)
+    dv = torch.where(ok[..., None], acc[..., None] * n, 0.0)
+    return dataclasses.replace(state, bodies=dataclasses.replace(b, v=v + dv))
+
+
+def many_bodies_variant(k, device="cuda", **capacity):
+    """The six ManyBodies stress parameterizations (ManyBodies.h:335-427),
+    as the JAX package scales them (counts ~50x down; 1-2 pair churn, 3
+    fixture sync, 4 island traversal, 5 SolveTOI, 6 reduced)."""
+    kw = {1: dict(floaters=60, sleepers=240, static_boxes=30, border=150.0,
+                  min_static=2.0, max_static=10.0),
+          2: dict(floaters=60, bullets=12, sleepers=120, static_boxes=8,
+                  static_edges=8, border=100.0, min_static=2.0, max_static=10.0),
+          3: dict(floaters=200, border=150.0, speed_per_radius=20.0),
+          4: dict(floaters=150, static_sensors=4, border=60.0, max_static=30.0),
+          5: dict(floaters=60, bullets=12, static_edges=10, border=60.0,
+                  min_static=10.0, max_static=30.0),
+          6: dict(floaters=40, bullets=10, static_boxes=4, static_edges=4,
+                  border=40.0, min_static=2.0, max_static=10.0)}
+    if k not in kw:
+        raise ValueError(k)
+    return many_bodies_impl(**kw[k], device=device, **capacity)

@@ -57,7 +57,10 @@ resident path) and otherwise walks a global scratch table through a
 ring of tiles, as the sweep kernels do. `middle_shape` picks K1's launch
 shape, `sweep_shape` the sweeps' (threads a world, worlds a block, tile,
 ring depth) and `unpack_shape` the unpack kernel's, from the static
-shapes alone.
+shapes alone. A world whose body planes leave no room for a ring tile of
+32 lanes in a block's shared memory (K1 above 4096 bodies or 16384 slots,
+the sweeps above 8192 bodies) keeps its planes in global memory instead
+(`global_planes`); every smaller world keeps the layout it had.
 
 Semantics: within a color the lanes are conflict-free on dynamic bodies,
 so a color is one parallel pass and only dynamic endpoints are written.
@@ -135,10 +138,10 @@ solve_middle.launches = 0
 
 # C entry points of csrc/solve_middle.cu: (pointers, ints, a float after
 # the ints); every one ends with the stream and returns a CUDA error code
-_ENTRIES = {"solve_middle_launch": (11, 10, True),
+_ENTRIES = {"solve_middle_launch": (11, 11, True),
             "pack_packed_launch": (4, 3, False),
-            "vel_iter_packed_launch": (6, 8, False),
-            "pos_iter_packed_launch": (6, 8, False),
+            "vel_iter_packed_launch": (6, 9, False),
+            "pos_iter_packed_launch": (6, 9, False),
             "unpack_packed_launch": (4, 5, False)}
 
 
@@ -186,7 +189,8 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
           (blob, perm, color_start, dyn_ab, vel, pos, movable, vel_out, pos_out,
            aux, scratch),
           (nw, nb, nc, mc, velocity_iterations, position_iterations,
-           shape.threads_per_world, int(shape.resident), shape.tile, shape.n_buffers), dt)
+           shape.threads_per_world, int(shape.resident), shape.tile, shape.n_buffers,
+           int(shape.global_planes)), dt)
     solve_middle.launches += 1
     return vel_out, pos_out, aux
 
@@ -225,6 +229,7 @@ class SweepShape(NamedTuple):
     tile: int                 # lanes of the packed table staged at a time
     n_buffers: int            # tiles in flight: the ring's depth
     smem_bytes: int           # dynamic shared memory a block
+    global_planes: bool       # the body plane and flags in global memory
 
 
 VEL_ROWS, POS_ROWS = 36, 23   # table rows a velocity / a position sweep reads
@@ -241,24 +246,30 @@ def _world_bytes(row_floats, planes, n_bodies, n_contacts, max_colors):
     """One world's shared memory in K1 or a sweep kernel (`WorldLayout`
     in csrc/solve_middle.cu): the staged rows, the overflow chunk's deltas
     and endpoints, the body planes (K1: two, and the movable flags),
-    color_start, the dynamic-endpoint flags in packed order."""
+    color_start, the dynamic-endpoint flags in packed order. No planes:
+    the global-planes layout, with neither planes nor flags."""
     chunk = min(CK, -(-n_contacts // 32) * 32)
     return (_align16(4 * row_floats) + 8 * chunk * 4 + planes * _align16(12 * n_bodies)
             + (_align16(n_bodies) if planes > 1 else 0)
-            + _align16(4 * (max_colors + 1)) + _align16(n_contacts))
+            + _align16(4 * (max_colors + 1)) + (_align16(n_contacts) if planes else 0))
 
 
-def _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers):
+def _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers,
+                       global_planes=False):
     """A sweep kernel's world: `n_buffers` tiles of `rows` rows."""
-    return _world_bytes(n_buffers * rows * tile, 1, n_bodies, n_contacts, max_colors)
+    return _world_bytes(n_buffers * rows * tile, 0 if global_planes else 1, n_bodies,
+                        n_contacts, max_colors)
 
 
-def _middle_world_bytes(resident, n_bodies, n_contacts, max_colors, tile, n_buffers):
+def _middle_world_bytes(resident, n_bodies, n_contacts, max_colors, tile, n_buffers,
+                        global_planes=False):
     """K1's world: 37 resident rows of `tile` lanes, or the ring's tiles
-    of the velocity rows, which then hold perm's inverse (C ints)."""
+    of the velocity rows, which then hold perm's inverse (C ints) unless
+    the planes are global."""
+    ring = n_buffers * VEL_ROWS * tile
     rows = (RESIDENT_ROWS * tile if resident
-            else max(n_buffers * VEL_ROWS * tile, n_contacts))
-    return _world_bytes(rows, 2, n_bodies, n_contacts, max_colors)
+            else ring if global_planes else max(ring, n_contacts))
+    return _world_bytes(rows, 0 if global_planes else 2, n_bodies, n_contacts, max_colors)
 
 
 def _need_smem(fn, smem_bytes, n_bodies, n_contacts):
@@ -276,15 +287,20 @@ def sweep_shape(n_bodies, n_contacts, max_colors, rows=VEL_ROWS) -> SweepShape:
     two. A world gets C / 4 threads between one warp and CK: a color holds
     tens of lanes, but staging and the overflow apply use every thread.
     A block takes as many worlds (a power of two, at most 8) as fit CK
-    threads and half an SM's shared memory."""
+    threads and half an SM's shared memory. A world above a block's shared
+    memory keeps its body plane in global memory."""
     tile = min(CK, -(-n_contacts // 32) * 32)
     n_buffers = 1 if n_contacts <= tile else 2
     tw = min(CK, max(32, -(-(n_contacts // 4) // 32) * 32))
     world = _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers)
+    glob = world > SMEM_BLOCK_MAX
+    if glob:
+        world = _sweep_world_bytes(rows, n_bodies, n_contacts, max_colors, tile, n_buffers,
+                                   True)
     wpb = 1
     while 2 * wpb <= 8 and 2 * wpb * tw <= CK and 2 * wpb * world <= _SMEM_SHARE:
         wpb *= 2
-    return SweepShape(tw, wpb, tile, n_buffers, wpb * world)
+    return SweepShape(tw, wpb, tile, n_buffers, wpb * world, glob)
 
 
 class MiddleShape(NamedTuple):
@@ -294,6 +310,7 @@ class MiddleShape(NamedTuple):
     tile: int                 # resident: lanes a row (>= C); ring: a tile's lanes
     n_buffers: int            # ring: tiles in flight (resident: 1)
     smem_bytes: int           # dynamic shared memory a block (a world)
+    global_planes: bool       # ring: the body planes and flags in global memory
 
 
 @functools.lru_cache(maxsize=64)
@@ -305,18 +322,25 @@ def middle_shape(n_bodies, n_contacts, max_colors) -> MiddleShape:
     memory allows (a color split at a tile border costs a pass). A world
     gets C / 2 threads between one warp and CK (the pack's and the
     unpack's copies spread over them; a pass needs about C / 10) and a
-    block of its own: on the card, several worlds a block were slower."""
+    block of its own: on the card, several worlds a block were slower.
+    Where the ring's tiles would be narrower than 32 lanes or perm's
+    inverse does not fit beside them, the body planes go to global memory
+    and the tiles take what the planes left."""
     tw = min(CK, max(32, -(-(n_contacts // 2) // 32) * 32))
     cap = -(-n_contacts // 4) * 4
     world = _middle_world_bytes(True, n_bodies, n_contacts, max_colors, cap, 1)
     if world <= SMEM_BLOCK_MAX:
-        return MiddleShape(tw, True, cap, 1, world)
-    rest = _world_bytes(0, 2, n_bodies, n_contacts, max_colors)
-    widest = (SMEM_BLOCK_MAX - rest) // (2 * VEL_ROWS * 4) // 32 * 32
-    tile = min(widest, -(-n_contacts // 32) * 32)
-    n_buffers = 1 if n_contacts <= tile else 2
-    world = _middle_world_bytes(False, n_bodies, n_contacts, max_colors, tile, n_buffers)
-    return MiddleShape(tw, False, tile, n_buffers, world)
+        return MiddleShape(tw, True, cap, 1, world, False)
+    for glob in (False, True):
+        rest = _world_bytes(0, 0 if glob else 2, n_bodies, n_contacts, max_colors)
+        widest = (SMEM_BLOCK_MAX - rest) // (2 * VEL_ROWS * 4) // 32 * 32
+        tile = min(widest, -(-n_contacts // 32) * 32)
+        n_buffers = 1 if n_contacts <= tile else 2
+        world = _middle_world_bytes(False, n_bodies, n_contacts, max_colors, tile,
+                                    n_buffers, glob)
+        if tile >= 32 and world <= SMEM_BLOCK_MAX:
+            break
+    return MiddleShape(tw, False, tile, n_buffers, world, glob)
 
 
 N_SMS = 132                   # streaming multiprocessors of an H100
@@ -350,7 +374,7 @@ def _launch_iter(name, rows, packed, perm, color_start, dyn_ab, body):
     _need_smem(name, shape.smem_bytes, nb, nc)
     out = torch.empty_like(body)
     _call(name, packed.device, (packed, perm, color_start, dyn_ab, body, out),
-          (nw, nb, nc, mc, *shape[:4]))
+          (nw, nb, nc, mc, *shape[:4], int(shape.global_planes)))
     return out
 
 
@@ -459,10 +483,34 @@ def _packed_layout(perm, color_start, dyn_ab=None) -> _Layout:
 
 def _apply(state, idx_a, idx_b, da, db):
     """state (W, 3, N+1) += deltas at body columns, lane by lane in order
-    (A endpoint then B endpoint); column N is the discard column."""
+    (A endpoint then B endpoint), as the kernels apply an overflow chunk;
+    column N is the discard column. On the CPU scatter_add_ sums in index
+    order; on a card it sums a column's entries in no fixed order, so
+    there each body takes its k-th delta in round k."""
     nw, _, nl = da.shape
-    idx = torch.stack([idx_a, idx_b], -1).reshape(nw, 1, 2 * nl).expand(-1, 3, -1)
-    state.scatter_add_(2, idx, torch.stack([da, db], -1).reshape(nw, 3, 2 * nl))
+    idx = torch.stack([idx_a, idx_b], -1).reshape(nw, 2 * nl)
+    delta = torch.stack([da, db], -1).reshape(nw, 3, 2 * nl)
+    if state.device.type == "cpu":
+        state.scatter_add_(2, idx[:, None].expand(-1, 3, -1), delta)
+    else:
+        _apply_in_rounds(state, idx, delta)
+
+
+def _apply_in_rounds(state, idx, delta):
+    """`_apply` with a fixed order on any device: idx (W, M) columns, delta
+    (W, 3, M); a column's k-th entry (in index order) is added in round k,
+    so no round adds two entries to one column but the discard column.
+    Reads the number of rounds to the host."""
+    dump = state.shape[-1] - 1
+    sidx, order = torch.sort(idx, dim=1, stable=True)
+    first = torch.searchsorted(sidx, sidx)                    # start of each body's run
+    rank = torch.empty_like(idx).scatter_(
+        1, order, torch.arange(idx.shape[1], device=idx.device) - first)
+    rank = torch.where(idx == dump, 0, rank)
+    for k in range(int(rank.max()) + 1):
+        on = rank == k
+        state.scatter_add_(2, torch.where(on, idx, dump)[:, None].expand(-1, 3, -1),
+                           torch.where(on[:, None], delta, 0.0))
 
 
 def _gather3(state, idx):

@@ -79,7 +79,8 @@ def world_manifold(mtype, local_point, local_normal, points, count,
     ln = torch.sqrt(dot(d, d))
     unit = torch.where((ln < _TINY)[..., None], 0.0,
                        d / torch.where(ln < _TINY, 1.0, ln)[..., None])
-    n_c = torch.where(far[..., None], unit, torch.tensor([1.0, 0.0]).to(d))
+    n_c = torch.where(far[..., None], unit,
+                      torch.stack([torch.ones_like(ln), torch.zeros_like(ln)], -1))
     ca_c = point_a + ra[..., None] * n_c
     cb_c = point_b - rb[..., None] * n_c
     pts_c = torch.stack([0.5 * (ca_c + cb_c), torch.zeros_like(ca_c)], -2)

@@ -22,8 +22,13 @@ a batch of worlds, in the JAX package's phase order:
 Each `lax.cond` / `lax.while_loop` predicate of the JAX program is read
 back to the host here; `Events.host_syncs` counts those reads per step.
 
+The pair table comes from the all-pairs finder up to 1024 fixture slots
+and from the grid hash above; K1 and the sweep kernels keep a world's
+body planes in global memory where they do not fit a block's shared
+memory, so no world size the JAX package steps is refused.
+
 Not ported yet, and refused rather than skipped: the pre-solve/filter
-hooks, and the grid pair finder (above 1024 fixtures).
+hooks.
 """
 
 from __future__ import annotations

@@ -130,11 +130,30 @@ on any failure:
      through the plain versions (phase 11's rules). Car's golden is held
      on world 0 of the car path, rolled on alone for steps 121-240. The
      rolls that check results and time nothing (the goldens of phases 14
-     and 15) run in inference mode.
+     and 15) run in inference mode;
+ 16. large single worlds, above 1024 fixture slots (the grid pair finder)
+     and, for many_bodies, above a block's shared memory (K1's and the
+     sweeps' global planes): (a) the grid `find_pairs` runs against the
+     all-pairs finder on 4 x many_bodies(1200) at steps 0, 30 and 60, to
+     the bit, and with two slots a bucket (overflow > 0, unique pairs, a
+     subset of all-pairs); (b) 16 x multithread_demo(2800) x 120 steps,
+     (c) 32 x tiles(20, 200, 10) x 120 and (d) 4 x many_bodies(10000) x
+     60 through K1 and K2, counting their launches from 0 before each
+     roll: no NaN, no pair overflow, every box in its container, on the
+     tiles or above the ground; worlds*steps/s, host syncs and CUDA
+     kernels a step, K1's path and the phase split with the pair refresh
+     apart; at (d) K1 and K2 against their plain versions (phases 2 and
+     3's rules) and the sandwich against K1 to the bit on K1's inputs;
+     (e) the six ManyBodies variants as one batch, 12 steps with
+     `floater_drive`: no overflow, finite, inside the border; (f) the
+     tiles(4, 20, 2) and multithread_demo(200) goldens as one batch for
+     240 steps, each under 0.05; (g) K1's device time and bound at (b)'s
+     and (d)'s last step. `python3 chip_smoke.py --phase16` runs the
+     build and this phase alone.
 
 The last lines are the card line, the kernels' JSON record (launches
-counted on each main path: 512 x pyramid(10), 256 x tumbler(200) and
-256 x car, by path and summed) and
+counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
+256 x car and phase 16's three rolls, by path and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -783,7 +802,7 @@ def middle_path(args):
             f"{vi + pi} sweeps = {passes * (vi + pi)} passes"), shape.resident
 
 
-def sandwich_vs_k1(args, label, exact):
+def sandwich_vs_k1(args, label, exact, phase=9):
     """K3 -> vi x K4 -> integrate_positions -> pi x K5 -> K6 against K1 on
     the inputs of a joint-free batch; returns the max abs error. Both
     apply an overflow chunk in lane order, so `exact` asks for 0."""
@@ -805,7 +824,7 @@ def sandwich_vs_k1(args, label, exact):
     torch.cuda.synchronize()
     err = {"pos": (pos - k_pos).abs().max().item(), "vel": (vel - k_vel).abs().max().item(),
            "aux": (aux - k_aux).abs().max().item()}
-    print(f"phase 9 sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
+    print(f"phase {phase} sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
           f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; K1: {middle_path(args)[0]}; "
           f"K4: {sweep_path(args)[0]}")
     if err["pos"] > 1e-5 or err["vel"] > 1e-4 or err["aux"] > 1e-4:
@@ -872,17 +891,24 @@ def kernels_per_step(states, n_steps=3):
     return n / n_steps if n else None
 
 
-def phase_split(states, n_steps=5, **kw):
+def phase_split(states, n_steps=5, refresh=False, **kw):
     """ms a step spent in the collide phase, the solve middle and the TOI
     phase over n_steps, each phase timed between two synchronizations (so
     none of them overlaps the host's launches with the device's work),
-    beside the synchronized step's ms."""
+    beside the synchronized step's ms. `refresh`: also the pair refresh
+    (every `find_pairs` call of the step) and the rest of the post-solve
+    phase (sleep, AABB sync, carry-over) apart."""
     import torch
     from box2d_mt_tpu_torch import world
     names = {"_collide_b": "collide", "_solve_middle_b": "solve middle",
              "_solve_sandwich_b": "solve middle", "_continuous": "TOI phase"}
+    if refresh:
+        names["_post_solve_b"] = "post-solve"
     saved = {n: getattr(world, n) for n in names}
     spent = dict.fromkeys(names.values(), 0.0)
+    if refresh:
+        spent["pair refresh"] = 0.0
+    finder = world.broadphase.find_pairs
 
     def timed(label, fn):
         def call(*args, **kwargs):
@@ -896,6 +922,8 @@ def phase_split(states, n_steps=5, **kw):
 
     for n, fn in saved.items():
         setattr(world, n, timed(names[n], fn))
+    if refresh:
+        world.broadphase.find_pairs = timed("pair refresh", finder)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -905,6 +933,11 @@ def phase_split(states, n_steps=5, **kw):
     finally:
         for n, fn in saved.items():
             setattr(world, n, fn)
+        world.broadphase.find_pairs = finder
+    if refresh:
+        # the refresh inside the post-solve phase is timed in both
+        spent["post-solve"] = max(0.0, spent["post-solve"] - spent["pair refresh"])
+        spent["rest of post-solve"] = spent.pop("post-solve")
     split = ", ".join(f"{k} {1e3 * v / n_steps:.2f}" for k, v in spent.items())
     return f"{1e3 * total / n_steps:.2f} ms a step ({split} ms; synchronized split)"
 
@@ -1427,6 +1460,274 @@ def held_to_goldens(names, kept, elapsed):
     return worst
 
 
+# phase 16's large single worlds (the load the reference's multithreading
+# was built for): (builder, its arguments, worlds, steps). multithread_demo
+# is 2800 boxes in a container (N = F = 4096, C = 16384), tiles a pyramid
+# of 210 boxes on 2000 static tiles (F = 4096, N = 256, C = 16384),
+# many_bodies 10000 falling boxes over a wide ground (N = F = 16384,
+# C = 65536; the bottom row lands near step 33, the second near 45)
+LARGE = {"multithread_demo": (2800, 16, 120), "tiles": ((20, 200, 10), 32, 120),
+         "many_bodies": (10000, 4, 60)}
+# the two C++ goldens of the large scenes' small sizes (tests/golden/*.jsonl):
+# builder, its arguments, bodies in the trace, the JAX package's bound
+# (tests/test_golden_zoo.py:218-221, :242-247); one batch of the two
+LARGE_GOLDENS = {"tiles": ((4, 20, 2), "tiles_240", 11, 0.05),
+                 "multithread_demo": ((200,), "multithread_demo_240", 201, 0.05)}
+LARGE_GOLDEN_CAPACITY = dict(body_capacity=256, fixture_capacity=256, contact_capacity=1024)
+# the six ManyBodies variants' borders (tests/test_scene_zoo.py:170)
+VARIANT_BORDERS = {1: 150.0, 2: 100.0, 3: 150.0, 4: 60.0, 5: 60.0, 6: 40.0}
+
+
+def large_args(name):
+    args = LARGE[name][0]
+    return args if isinstance(args, tuple) else (args,)
+
+
+def large_label(name):
+    """e.g. '32 x tiles(20, 200, 10)'."""
+    return f"{LARGE[name][1]} x {name}({', '.join(map(str, large_args(name)))})"
+
+
+def large_scene(name, dev):
+    from box2d_mt_tpu_torch.models import scenes
+    return getattr(scenes, name)(*large_args(name), device=dev)
+
+
+def grid_vs_allpairs(dev):
+    """16(a): 4 x many_bodies(1200) (2048 fixture slots) at steps 0, 30 and
+    60 of a roll: the grid `find_pairs` runs equals the all-pairs finder
+    world by world to the bit, with no overflow; with two slots a bucket
+    it overflows, and keeps unique pairs that all-pairs also finds. The
+    overflow of the JAX package's grid (32 slots, low bits) is printed
+    beside."""
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.ops import broadphase as bp
+    from box2d_mt_tpu_torch.state import replicate
+    states = replicate(scenes.many_bodies(1200, device=dev), 4)
+    nc, nf = states.contacts.capacity, states.fixtures.capacity
+    for step in (0, 30, 60):
+        if step:
+            states, _ = roll(states, 30)
+        ga, gb, g_over = bp.find_pairs_grid(states, nc, cell_slots=bp.GRID_CELL_SLOTS,
+                                            spread=True)
+        aa, ab, a_over = bp.find_pairs_allpairs(states, nc)
+        _, _, over32 = bp.find_pairs_grid(states, nc)
+        sa, sb, s_over = bp.find_pairs_grid(states, nc, cell_slots=2)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(ga, aa) and torch.equal(gb, ab))
+        keys = lambda fa, fb, w: {(a, b) for a, b in zip(fa[w].tolist(), fb[w].tolist())
+                                  if a >= 0}
+        subset = all(len(keys(sa, sb, w)) == int((sa[w] >= 0).sum())
+                     and keys(sa, sb, w) <= keys(aa, ab, w) for w in range(4))
+        print(f"phase 16(a) 4 x many_bodies(1200), {nf} fixture slots, step {step}: "
+              f"pairs/world {(aa >= 0).sum(1).tolist()}, grid ({bp.GRID_CELL_SLOTS} slots, "
+              f"spread) == all-pairs world by world: {equal}, overflow {g_over.tolist()} "
+              f"(all-pairs {a_over.tolist()}; JAX's 32 slots {over32.tolist()}); 2 slots: "
+              f"overflow "
+              f"{s_over.tolist()}, unique and a subset of all-pairs: {subset}")
+        if not equal or int(g_over.max()) or int(a_over.max()):
+            raise AssertionError(f"step {step}: the grid disagrees with all-pairs")
+        if int(s_over.min()) <= 0 or not subset:
+            raise AssertionError(f"step {step}: 2 slots a bucket did not overflow cleanly")
+
+
+def large_path(name, dev, inside, phase="16"):
+    """One large scene's path, LARGE[name] worlds and steps through K1 and
+    K2, counted from 0 just before the roll: no NaN, no pair overflow,
+    `inside(states)`; worlds*steps/s, host syncs and CUDA kernels a step,
+    the launches, K1's path and the phase split with the pair refresh
+    apart. Returns (launches, the recorder, the final states)."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import replicate
+    _, n_worlds, n_steps = LARGE[name]
+    one = large_scene(name, dev)
+    roll(replicate(one, 2), 2)                         # first-use allocations
+    states = replicate(one, n_worlds)
+    rec = Recorder()
+    worst = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def check(st, ev):
+        worst.copy_(torch.maximum(worst, torch.stack([ev.pair_overflow.max(),
+                                                      ev.color_overflow.max()])))
+
+    counters = (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
+                         toi=rec.time_of_impact)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(("solve_middle", "toi") + SANDWICH_NAMES,
+                        (f.launches for f in counters)))
+    label = large_label(name)
+    b = states.bodies
+    if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
+        raise AssertionError(f"{label}: NaN/inf in the body state")
+    pair_overflow, color_overflow = worst.tolist()
+    if launches["solve_middle"] <= 0 or launches["toi"] <= 0:
+        raise AssertionError(f"{label}: K1 or K2 was not launched: {launches}")
+    inside(states)
+    per_step = kernels_per_step(states)
+    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
+          f"{n_worlds * n_steps / elapsed:.2f} worlds*steps/s, launches={launches}, "
+          f"host syncs/step={syncs / n_steps:.2f}, CUDA kernels+copies/step="
+          f"{'not measured' if per_step is None else f'{per_step:.0f}'}, "
+          f"max pair overflow={pair_overflow}, max color overflow={color_overflow}, "
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}; "
+          f"K1 (last step): {middle_path(rec.middle)[0]}")
+    print(f"phase {phase} {label}, the next 3 steps: "
+          f"{phase_split(states, n_steps=3, refresh=True)}")
+    if pair_overflow:
+        raise AssertionError(f"{label}: pair overflow {pair_overflow}")
+    return launches, rec, states
+
+
+def k1_time(args, label):
+    """16(g): K1's device time (graph replay) and bound on recorded inputs."""
+    from box2d_mt_tpu_torch.ops.solve_middle import solve_middle
+    m = measure(solve_middle, args, profiler=False)
+    solved = int(args[2][:, -1].sum())
+    n_bytes = k1_bytes(args)
+    bnd = bound(n_bytes, solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
+                                   + MAIN["position_iterations"] * K1_OPS_POS))
+    print(f"phase 16(g) solve_middle [{label}, {solved} solved lanes]: {show(m, n_bytes)}; "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]}: {n_bytes} B; device time at "
+          f"{100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)[0]}")
+    return m, bnd
+
+
+def many_bodies_variants(dev):
+    """16(e): the six ManyBodies variants as one batch at common capacities,
+    12 steps with `floater_drive` between them: no color or pair
+    overflow, finite, every body inside its variant's border + 10."""
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import concat_worlds
+    from box2d_mt_tpu_torch.world import possible_kinds
+    first = [scenes.many_bodies_variant(k, device=dev)[0] for k in VARIANT_BORDERS]
+    cap = dict(body_capacity=max(st.bodies.capacity for st in first),
+               fixture_capacity=max(st.fixtures.capacity for st in first),
+               contact_capacity=max(st.contacts.capacity for st in first))
+    built = [scenes.many_bodies_variant(k, device=dev, **cap) for k in VARIANT_BORDERS]
+    states = concat_worlds([st for st, _ in built])
+    aux = {key: torch.cat([a[key] for _, a in built]) for key in built[0][1]}
+    kinds = possible_kinds(states)
+    worst = torch.zeros(2, dtype=torch.int32, device=dev)
+    for _ in range(12):
+        states = scenes.floater_drive(states, aux, DT)
+        states, ev = checked_step(states, DT, kinds=kinds, **MAIN)
+        worst = torch.maximum(worst, torch.stack([ev.pair_overflow.max(),
+                                                  ev.color_overflow.max()]))
+    b = states.bodies
+    live = b.body_type >= 0
+    finite = bool(torch.isfinite(b.c[live]).all())
+    reach = (b.c.abs().amax(-1) * live).amax(1).tolist()
+    borders = list(VARIANT_BORDERS.values())
+    inside = all(r < border + 10.0 for r, border in zip(reach, borders))
+    print(f"phase 16(e) ManyBodies variants 1-6 as one batch ({cap}), 12 steps with "
+          f"floater_drive: finite {finite}, max pair/color overflow {worst.tolist()}, "
+          f"farthest |coordinate| by variant {[round(r, 2) for r in reach]} (borders + 10 "
+          f"{[border + 10 for border in borders]})")
+    if not finite or int(worst.max()) or not inside:
+        raise AssertionError("a ManyBodies variant broke its invariants")
+
+
+def large_goldens(dev):
+    """16(f): tiles(4, 20, 2) and multithread_demo(200) as one batch for
+    240 steps, each against its C++ trace under the JAX package's bound."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import concat_worlds
+    from box2d_mt_tpu_torch.world import possible_kinds
+    states = concat_worlds([getattr(scenes, name)(*spec[0], device=dev,
+                                                  **LARGE_GOLDEN_CAPACITY)
+                            for name, spec in LARGE_GOLDENS.items()])
+    kinds = possible_kinds(states)
+    kept = []
+    t0 = time.perf_counter()
+    for _ in range(240):
+        states, ev = checked_step(states, DT, velocity_iterations=8, position_iterations=3,
+                                  kinds=kinds)
+        b = states.bodies
+        kept.append((torch.cat([b.xf_p, b.a[..., None]], -1), ev.color_overflow))
+    got = torch.stack([p for p, _ in kept]).cpu().numpy()
+    overflow = torch.stack([o for _, o in kept]).max(0).values.tolist()
+    elapsed = time.perf_counter() - t0
+    for w, (name, (args, trace, n_bodies, limit)) in enumerate(LARGE_GOLDENS.items()):
+        ref = [json.loads(line) for line in open(ROOT / f"tests/golden/{trace}.jsonl")]
+        want = np.asarray([[rb[:3] for rb in r["bodies"]] for r in ref[:240]])
+        mine = got[:, w, n_bodies - 1::-1]
+        errs = np.abs(mine - want).max((1, 2))
+        print(f"phase 16(f) golden {name}({', '.join(map(str, args))}), steps 0-239 in a "
+              f"batch of two ({elapsed:.3f} s): worst error {errs.max():.3g} (bound {limit}), "
+              f"last step "
+              f"{errs[-1]:.3g}, color overflow {overflow[w]}")
+        if not errs.max() < limit or overflow[w]:
+            raise AssertionError(f"{name}: the C++ golden is not met")
+
+
+def large_worlds(dev):
+    """Phase 16: the grid pair finder and the worlds whose bodies outgrow
+    a block's shared memory. Returns the launches of the three paths and
+    K1's times at multithread_demo(2800) and many_bodies(10000)."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    grid_vs_allpairs(dev)
+
+    def boxes(states):
+        b = states.bodies
+        return b.c[b.body_type == 2]
+
+    def boxes_in_container(states):
+        c = boxes(states)
+        far, low = float(c[:, 0].abs().max()), float(c[:, 1].min())
+        if not (far < 52.0 and low > -0.1):
+            raise AssertionError(f"a box left the container: |x| {far}, y {low}")
+
+    def boxes_on_tiles(states):
+        low = float(boxes(states)[:, 1].min())
+        if not low > 0.4:
+            raise AssertionError(f"a box fell into the tiles: center y {low}")
+
+    def boxes_above_ground(states):
+        low = float(boxes(states)[:, 1].min())
+        if not low > 0.4:
+            raise AssertionError(f"a box fell through the ground: center y {low}")
+
+    launches, times = {}, {}
+    launches["multithread_demo"], rec, _ = large_path("multithread_demo", dev,
+                                                      boxes_in_container, "16(b)")
+    times["multithread_demo"] = k1_time(rec.middle, f"{large_label('multithread_demo')}, "
+                                                    "last step")
+    del rec
+    launches["tiles"], rec, _ = large_path("tiles", dev, boxes_on_tiles, "16(c)")
+    del rec
+    launches["many_bodies"], rec, _ = large_path("many_bodies", dev, boxes_above_ground,
+                                                 "16(d)")
+    args = rec.middle
+    shapes = (sm.middle_shape(args[4].shape[-1], args[0].shape[-1], args[2].shape[-1] - 1),
+              sm.sweep_shape(args[4].shape[-1], args[0].shape[-1], args[2].shape[-1] - 1))
+    if not all(shape.global_planes for shape in shapes):
+        raise AssertionError("many_bodies(10000) did not take the global planes")
+    label = large_label("many_bodies")
+    err_k1 = compare_middle(args, f"{label}, last step", phase="16(d)")
+    err_k2 = compare_toi(rec.busiest_toi(), f"{label}, busiest round", min_touching=1,
+                         phase="16(d)")
+    err_sw = sandwich_vs_k1(args, f"{label}, last step", exact=True, phase="16(d)")
+    times["many_bodies"] = k1_time(args, f"{label}, last step")
+    del rec, args
+    torch.cuda.empty_cache()
+    many_bodies_variants(dev)
+    large_goldens(dev)
+    return launches, times, err_k1, err_k2, err_sw
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1448,6 +1749,7 @@ def main() -> int:
     def lap(phase):
         print(f"  [phase {phase} done at {time.perf_counter() - t_start:.1f} s]")
 
+    only16 = sys.argv[1:] == ["--phase16"]        # the build and phase 16 alone
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1460,6 +1762,10 @@ def main() -> int:
                 print("    ptxas:", line.strip())
 
     lap(1)
+    if only16:
+        large_worlds(dev)
+        lap(16)
+        return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
     args10, _ = capture_middle(s10)
@@ -1771,12 +2077,19 @@ def main() -> int:
     err_k2 = max(err_k2, err_car_k2)
     joint_types(dev)
     lap(15)
+    # ---- 16. the grid pair finder and worlds above a block's shared memory
+    launches_large, k1_large, err_l1, err_l2, err_lsw = large_worlds(dev)
+    err_k1, err_k2 = max(err_k1, err_l1), max(err_k2, err_l2)
+    err_sw = {k: max(v, err_lsw) for k, v in err_sw.items()}
+    lap(16)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
     # `launches` is their sum
     paths = {"512 x pyramid(10) x 60": launches, "256 x tumbler(200) x 120": launches_t,
              "256 x car x 120": launches_car}
+    for name, (_, _, n_steps) in LARGE.items():
+        paths[f"{large_label(name)} x {n_steps}"] = launches_large[name]
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),
@@ -1794,6 +2107,9 @@ def main() -> int:
     print(f"phase 14 launches: 512 x sphere_stack(10) {launches_s}; 256 x pinball "
           f"{launches_p}")
     print(f"phase 15 launches: 256 x car {launches_car}")
+    for name, (m, bnd) in k1_large.items():
+        print(f"phase 16 solve_middle at {name}: {m['ms']:.4f} ms on the device, bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]})")
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ contact slots (several worlds a block, the last block partly filled),
 turns, and the solve middle takes its ring path), an overflow color of
 several chunks, a world without a solved lane, and slot counts that are
 no multiple of 4 (rows not 16-byte aligned), on both of the solve
-middle's paths. The position sweep also gets hand-built lanes of each
+middle's paths, and 16 copies of a pyramid(44) world side by side in one
+world (16384 bodies, 65536 slots: the body planes in global memory, K6's
+scatter unpack). The position sweep also gets hand-built lanes of each
 manifold type, and angles past sinf's fast range. Circles: K1 gets the
 solve middle of 8 x sphere_stack(10) at a step whose solved lanes include
 circle-circle (e_circles) manifolds, and K2 the lanes of fast circles
@@ -332,7 +334,31 @@ SHAPE_CASES = {
     "c130_unaligned": (7, 6, 30, 16, "unaligned"),
     "c258_unaligned_overflow": (10, 3, 30, 3, "unaligned"),
     "c4098_unaligned_ring": (44, 2, 60, 16, "unaligned"),
+    # 16 copies of a pyramid(44) world side by side in one world: 16384
+    # bodies and 65536 slots, where the body planes go to global memory
+    "c65536_global_planes": (44, 2, 60, 16, "tiled"),
+    "c65536_global_planes_overflow": (44, 2, 60, 3, "tiled"),
 }
+TILES = 16
+
+
+def _tiled(args, k):
+    """The solve middle's arguments of k copies of each world side by side
+    in one world: copy j's bodies at j * N, its slots at j * C; each
+    color holds the copies' lanes of that color, copy after copy."""
+    blob, perm, color_start, dyn_ab, vel, pos, movable, *rest = args
+    nw, _, nc = blob.shape
+    nb = vel.shape[-1]
+    blob = torch.cat([blob + torch.zeros_like(blob).index_fill_(1, torch.tensor(
+        [1, 2], device=blob.device), float(j * nb)) for j in range(k)], 2)
+    cs = color_start.tolist()
+    perms = []
+    for w in range(nw):
+        bounds = list(zip(cs[w][:-1], cs[w][1:])) + [(cs[w][-1], nc)]
+        perms.append(torch.cat([perm[w, a:b] + j * nc for a, b in bounds for j in range(k)]))
+    return (blob.contiguous(), torch.stack(perms).contiguous(), (color_start * k).contiguous(),
+            dyn_ab.repeat(1, k), vel.repeat(1, 1, k), pos.repeat(1, 1, k), movable.repeat(1, k),
+            *rest)
 
 
 @pytest.fixture(scope="module", params=list(SHAPE_CASES))
@@ -358,7 +384,10 @@ def middle_args(request):
     if variant == "unaligned":
         pad = lambda t: torch.nn.functional.pad(t, (0, 2)).contiguous()
         blob, perm, dyn_ab = pad(blob), pad(perm), pad(dyn_ab)
-    return request.param, (blob, perm, color_start, dyn_ab, *rest)
+    args = (blob, perm, color_start, dyn_ab, *rest)
+    if variant == "tiled":
+        args = _tiled(args, TILES)
+    return request.param, args
 
 
 def _sandwich(blob, perm, color_start, dyn_ab, vel, pos, movable, dt, vi, pi):
@@ -377,12 +406,14 @@ def _sandwich(blob, perm, color_start, dyn_ab, vel, pos, movable, dt, vi, pi):
 @pytest.mark.gpu
 def test_solve_middle_kernel_matches_plain_at_every_shape(middle_args):
     """K1 against its plain version at every launch shape, on its
-    resident path up to 1024 slots and its ring path beyond."""
+    resident path up to 1024 slots and its ring path beyond, with the body
+    planes in global memory at 16384 bodies."""
     name, args = middle_args
     blob, perm, color_start = args[:3]
     nc, nb = blob.shape[2], args[4].shape[2]
     shape = sm.middle_shape(nb, nc, color_start.shape[1] - 1)
     assert shape.resident == (nc <= 1024)
+    assert shape.global_planes == ("global_planes" in name)
     launches = sm.solve_middle.launches
     k_vel, k_pos, k_aux = sm.solve_middle(*args)
     p_vel, p_pos, p_aux = sm.solve_middle_plain(*args)
@@ -398,8 +429,9 @@ def test_solve_middle_kernel_matches_plain_at_every_shape(middle_args):
 @pytest.mark.gpu
 def test_sandwich_kernels_equal_solve_middle_kernel(middle_args):
     """K3 -> 8 x K4 -> integrate -> 3 x K5 -> K6 is K1 to the bit at every
-    launch shape, on both of K1's paths: all run one sweep implementation
-    and apply an overflow chunk's deltas in lane order."""
+    launch shape, on both of K1's paths and with the body planes in global
+    memory: all run one sweep implementation and apply an overflow chunk's
+    deltas in lane order."""
     name, args = middle_args
     blob, perm, color_start = args[:3]
     nc, nb = blob.shape[2], args[4].shape[2]
@@ -412,11 +444,12 @@ def test_sandwich_kernels_equal_solve_middle_kernel(middle_args):
         assert sm.unpack_shape(blob.shape[0], nc)[0] > 1
     if name == "c128_empty_world":
         assert int(lanes[1]) == 0
-    if name.startswith("c4096"):
+    if name.startswith("c4096") or name.startswith("c65536"):
         assert int(lanes.max()) > shape.tile * shape.n_buffers      # the ring turns
+    assert shape.global_planes == ("global_planes" in name)
     if "overflow" in name:
         overflow = int((color_start[:, -1] - color_start[:, -2]).max())
-        assert overflow > (sm.CK if name.startswith("c4096") else 1)
+        assert overflow > (1 if name.startswith("c128") or name.startswith("c258") else sm.CK)
     want = sm.solve_middle(*args)
     got = _sandwich(*args)
     torch.cuda.synchronize()
@@ -451,36 +484,38 @@ def test_sweep_and_unpack_kernels_match_plain(middle_args):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_bodies,n_contacts", [(32, 128), (64, 258), (256, 1024),
-                                                 (1024, 4096)])
+                                                 (1024, 4096), (16384, 65536)])
 def test_sweep_shared_memory_matches_the_kernels_layout(n_bodies, n_contacts):
     """`sweep_shape` budgets a block's shared memory with its own copy of
-    the kernel's layout sum."""
+    the kernel's layout sum, the global-planes layout's too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are built only on a card")
     from box2d_mt_tpu_torch.cuda_build import load
     fn = load("solve_middle").sweep_world_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
     for velocity, rows in ((1, sm.VEL_ROWS), (0, sm.POS_ROWS)):
         shape = sm.sweep_shape(n_bodies, n_contacts, 16, rows)
-        world = fn(velocity, n_bodies, n_contacts, 16, shape.tile, shape.n_buffers)
+        world = fn(velocity, n_bodies, n_contacts, 16, shape.tile, shape.n_buffers,
+                   int(shape.global_planes))
         assert shape.smem_bytes == shape.worlds_per_block * world
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_bodies,n_contacts", [(32, 128), (64, 258), (256, 1024),
-                                                 (1024, 4096)])
+                                                 (1024, 4096), (8192, 32768), (16384, 65536)])
 def test_middle_shared_memory_matches_the_kernels_layout(n_bodies, n_contacts):
     """`middle_shape` budgets a block's shared memory with its own copy of
-    K1's layout sum, on the resident path and on the ring path."""
+    K1's layout sum, on the resident path, on the ring path and with the
+    body planes in global memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are built only on a card")
     from box2d_mt_tpu_torch.cuda_build import load
     fn = load("solve_middle").middle_world_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
     for mc in (3, 16):
         shape = sm.middle_shape(n_bodies, n_contacts, mc)
         assert shape.smem_bytes == fn(int(shape.resident), n_bodies, n_contacts, mc,
-                                      shape.tile, shape.n_buffers)
+                                      shape.tile, shape.n_buffers, int(shape.global_planes))
 
 
 # lanes of one manifold type each (circles 0, face A 1, face B 2), or of

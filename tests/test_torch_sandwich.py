@@ -176,19 +176,33 @@ def test_plain_sandwich_matches_pallas_interpret():
     (256, 1024, sm.VEL_ROWS, (256, 1, 256, 2)),    # tumbler(200)
     (256, 1024, sm.POS_ROWS, (256, 1, 256, 2)),
     (1024, 4096, sm.VEL_ROWS, (256, 1, 256, 2)),   # pyramid(44)
-], ids=["chain", "pyramid10", "c258", "tumbler_vel", "tumbler_pos", "pyramid44"])
+    (4096, 16384, sm.VEL_ROWS, (256, 1, 256, 2)),  # multithread_demo(2800)
+    (8192, 32768, sm.VEL_ROWS, (256, 1, 256, 2)),  # many_bodies(5000)
+    (16384, 65536, sm.VEL_ROWS, (256, 1, 256, 2)),  # many_bodies(10000): global planes
+    (16384, 65536, sm.POS_ROWS, (256, 1, 256, 2)),
+], ids=["chain", "pyramid10", "c258", "tumbler_vel", "tumbler_pos", "pyramid44",
+        "multithread2800", "many_bodies5000", "many_bodies10000_vel",
+        "many_bodies10000_pos"])
 def test_sweep_shape_from_static_shapes(n_bodies, n_contacts, rows, want):
     """What the sweep kernels require of their launch shape, and the shape
-    each scene of the port gets."""
+    each scene of the port gets; a world whose body plane does not fit a
+    block beside the ring keeps it in global memory."""
     shape = sm.sweep_shape(n_bodies, n_contacts, 16, rows)
-    tw, wpb, tile, n_buffers, smem = shape
+    tw, wpb, tile, n_buffers, smem, global_planes = shape
     assert (tw, wpb, tile, n_buffers) == want
+    assert global_planes == (n_bodies > 8192)
     assert tw % 32 == 0 and 32 <= tw and tw * wpb <= sm.CK
     assert tile % 32 == 0 and tile >= min(sm.CK, n_contacts)   # a chunk fits a tile
     assert n_buffers * tile >= min(n_contacts, 2 * tile)
-    world = sm._sweep_world_bytes(rows, n_bodies, n_contacts, 16, tile, n_buffers)
+    world = sm._sweep_world_bytes(rows, n_bodies, n_contacts, 16, tile, n_buffers,
+                                  global_planes)
     assert smem == wpb * world and world % 16 == 0
-    assert world >= 4 * (n_buffers * rows * tile + 3 * n_bodies) + n_contacts
+    if global_planes:
+        assert sm._sweep_world_bytes(rows, n_bodies, n_contacts, 16, tile,
+                                     n_buffers) > sm.SMEM_BLOCK_MAX
+        assert world >= 4 * n_buffers * rows * tile
+    else:
+        assert world >= 4 * (n_buffers * rows * tile + 3 * n_bodies) + n_contacts
     assert smem <= sm.SMEM_BLOCK_MAX
     if wpb > 1:
         assert 2 * smem <= sm.SMEM_BLOCK_MAX       # a second block fits the SM
@@ -200,16 +214,22 @@ def test_sweep_shape_from_static_shapes(n_bodies, n_contacts, rows, want):
     (64, 258, (160, True, 260, 1)),       # a slot count off the tiers
     (256, 1024, (256, True, 1024, 1)),    # pyramid(22)
     (1024, 4096, (256, False, 672, 2)),   # pyramid(44): the ring
-], ids=["c128", "c256", "c258", "c1024", "c4096"])
+    (4096, 16384, (256, False, 352, 2)),  # multithread_demo(2800): the ring
+    (8192, 32768, (256, False, 768, 2)),  # many_bodies(5000): global planes
+    (16384, 65536, (256, False, 768, 2)),  # many_bodies(10000): global planes
+], ids=["c128", "c256", "c258", "c1024", "c4096", "c16384", "c32768", "c65536"])
 def test_middle_shape_from_static_shapes(n_bodies, n_contacts, want):
     """K1's launch shape: a world's table stays resident in shared memory
-    while a world fits a block, and goes through the ring beyond; the
-    shared memory a block (a world) takes is the layout sum."""
+    while a world fits a block, and goes through the ring beyond, with its
+    body planes in global memory where they leave no ring tile of 32
+    lanes; the shared memory a block (a world) takes is the layout sum."""
     shape = sm.middle_shape(n_bodies, n_contacts, 16)
-    tw, resident, tile, n_buffers, smem = shape
+    tw, resident, tile, n_buffers, smem, global_planes = shape
     assert (tw, resident, tile, n_buffers) == want
+    assert global_planes == (n_bodies > 4096)
     assert tw % 32 == 0 and 32 <= tw <= sm.CK
-    world = sm._middle_world_bytes(resident, n_bodies, n_contacts, 16, tile, n_buffers)
+    world = sm._middle_world_bytes(resident, n_bodies, n_contacts, 16, tile, n_buffers,
+                                   global_planes)
     assert smem == world and world % 16 == 0 and smem <= sm.SMEM_BLOCK_MAX
     whole = sm._middle_world_bytes(True, n_bodies, n_contacts, 16, -(-n_contacts // 4) * 4, 1)
     assert resident == (whole <= sm.SMEM_BLOCK_MAX)
@@ -217,16 +237,58 @@ def test_middle_shape_from_static_shapes(n_bodies, n_contacts, want):
         # 37 rows of the slots, both body planes and the movable flags
         assert tile >= n_contacts and tile % 4 == 0
         assert world >= 4 * (sm.RESIDENT_ROWS * n_contacts + 6 * n_bodies) + n_bodies
-    else:
+    elif not global_planes:
         # the tiles of the velocity rows, which then hold perm's inverse
         assert tile % 32 == 0 and n_buffers * tile >= min(n_contacts, 2 * tile)
         assert world >= 4 * max(n_buffers * sm.VEL_ROWS * tile, n_contacts)
         wider = sm._middle_world_bytes(False, n_bodies, n_contacts, 16, tile + 32, n_buffers)
         assert wider > sm.SMEM_BLOCK_MAX             # the widest tiles that fit
+    else:
+        # no ring tile of 32 lanes beside the planes: the tiles alone
+        assert sm._middle_world_bytes(False, n_bodies, n_contacts, 16, 32,
+                                      n_buffers) > sm.SMEM_BLOCK_MAX
+        assert tile % 32 == 0 and world >= 4 * n_buffers * sm.VEL_ROWS * tile
+        wider = sm._middle_world_bytes(False, n_bodies, n_contacts, 16, tile + 32,
+                                       n_buffers, True)
+        assert wider > sm.SMEM_BLOCK_MAX
     # pyramid(10)'s world by hand: rows, chunk deltas and endpoints, two
     # body planes, movable flags, color_start, dyn flags
     assert sm._middle_world_bytes(True, 64, 256, 16, 256, 1) == (
         37 * 256 * 4 + 8 * 256 * 4 + 2 * 768 + 64 + 80 + 256)
+
+
+def test_plain_apply_in_rounds_keeps_lane_order():
+    """The plain versions' apply on a card (round k adds each body's k-th
+    delta) sums in lane order, as scatter_add_ does on the CPU and the
+    kernels do in an overflow chunk: equal to the bit."""
+    g = torch.Generator().manual_seed(0)
+    nw, nb, nl = 3, 20, 300
+    state = torch.randn(nw, 3, nb + 1, generator=g)
+    idx = torch.randint(0, nb + 1, (nw, 2 * nl), generator=g)
+    delta = torch.randn(nw, 3, 2 * nl, generator=g)
+    want = state.clone().scatter_add_(2, idx[:, None].expand(-1, 3, -1), delta)
+    got = state.clone()
+    sm._apply_in_rounds(got, idx, delta)
+    assert torch.equal(got[..., :nb], want[..., :nb])
+
+
+@pytest.mark.parametrize("max_colors", [3, 16])
+def test_shapes_fit_every_world_size(max_colors):
+    """Every world the JAX package steps, up to 65536 bodies and 262144
+    contact slots, gets a launch shape of K1 and of both sweeps within a
+    block's shared memory and with tiles of at least 32 lanes."""
+    sizes = lambda top: sorted({1 << k for k in range(top.bit_length())}
+                               | {3, 100, 1000, 3000, 5000, 50000, top} - {0})
+    for n_bodies in sizes(65536):
+        for n_contacts in sizes(262144):
+            m = sm.middle_shape(n_bodies, n_contacts, max_colors)
+            assert m.smem_bytes <= sm.SMEM_BLOCK_MAX, (n_bodies, n_contacts)
+            assert m.tile >= (n_contacts if m.resident else 32), (n_bodies, n_contacts)
+            assert m.resident or m.tile % 32 == 0
+            for rows in (sm.VEL_ROWS, sm.POS_ROWS):
+                w = sm.sweep_shape(n_bodies, n_contacts, max_colors, rows)
+                assert w.smem_bytes <= sm.SMEM_BLOCK_MAX, (n_bodies, n_contacts, rows)
+                assert w.tile >= 32 and w.tile % 32 == 0
 
 
 def test_unpack_shape_from_static_shapes():
