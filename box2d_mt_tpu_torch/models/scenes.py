@@ -5,8 +5,8 @@ the two packages are equal field by field. States land on the card unless
 the caller passes another `device` (the tests pass device="cpu"). Every
 builder passes `WorldBuilder.freeze`'s capacities through, so that scenes
 frozen with equal capacities share a batch (`state.concat_worlds`).
-
-Not here yet: the scenes of the hooks and `mutate`."""
+Scenes that reserve spare slots for `mutate` (breakable, shape_editing)
+keep their JAX capacities unless the caller passes others."""
 
 import dataclasses
 import math
@@ -1467,3 +1467,105 @@ def many_bodies_variant(k, device="cuda", **capacity):
     if k not in kw:
         raise ValueError(k)
     return many_bodies_impl(**kw[k], device=device, **capacity)
+
+
+def conveyor_belt(device="cuda", **capacity):
+    """Testbed/Tests/ConveyorBelt.h — 5 boxes dropped on a static platform
+    (fixture index 1). Drive it with a pre_solve_fn that returns
+    tangent_speed=5 for the platform's contacts (the SetTangentSpeed
+    analog, b2Contact.h:157)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-20.0, 0.0), (20.0, 0.0)))
+    platform = wb.create_body(position=(-5.0, 5.0))
+    wb.create_fixture(platform, shapes.Polygon.box(10.0, 0.5), friction=0.8)
+    for i in range(5):
+        b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(-10.0 + 2.0 * i, 7.0))
+        wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5), density=20.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def one_sided_platform(device="cuda", **capacity):
+    """Testbed/Tests/OneSidedPlatform.h — circle dropped at -50 m/s onto a
+    platform (fixture 1); pair it with a pre_solve_fn that disables the
+    platform's contacts while the actor (body 2) is below the platform
+    top."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-20.0, 0.0), (20.0, 0.0)))
+    platform = wb.create_body(position=(0.0, 10.0))
+    wb.create_fixture(platform, shapes.Polygon.box(3.0, 0.5))
+    actor = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                           position=(0.0, 12.0),
+                           linear_velocity=(0.0, -50.0))
+    wb.create_fixture(actor, shapes.Circle(0.5), density=20.0)
+    return wb.freeze(device=device, **capacity)
+
+
+def breakable(device="cuda", **capacity):
+    """Testbed/Tests/Breakable.h — one body with two half-box fixtures
+    dropped from 40 m; the reference splits it on hard impact via
+    PostSolve + fixture destruction (mutate.remove_fixture/add_body).
+    Four body slots, for the split piece, unless the caller passes
+    others."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    g = wb.create_body()
+    wb.create_fixture(g, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                       position=(0.0, 40.0), angle=0.25 * math.pi)
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5, (-0.5, 0.0), 0.0),
+                      density=1.0)
+    wb.create_fixture(b, shapes.Polygon.box(0.5, 0.5, (0.5, 0.0), 0.0),
+                      density=1.0)
+    return wb.freeze(device=device, **{"body_capacity": 4, **capacity})
+
+
+def skier(device="cuda", **capacity):
+    """Testbed/Tests/Skier.h — the collision-jerk regression: a skier
+    (box torso + trapezoid ski, friction 0) slides from a platform onto
+    two ghost-connected slope edges; crossing the slope joints must not
+    kick the skier airborne."""
+    a1 = 30.0 * math.pi / 180.0          # -Angle1Degrees, downward slope
+    a2 = a1 + 10.0 * math.pi / 180.0     # relative second slope
+    slope = 2.0
+    verts = [(-8.0, 0.0), (0.0, 0.0)]
+    verts.append((verts[-1][0] + slope * math.cos(a1),
+                  verts[-1][1] - slope * math.sin(a1)))
+    verts.append((verts[-1][0] + slope * math.cos(a2),
+                  verts[-1][1] - slope * math.sin(a2)))
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    g = wb.create_body()
+    for i in range(3):
+        wb.create_fixture(g, shapes.Edge(
+            verts[i], verts[i + 1],
+            v0=verts[i - 1] if i > 0 else None,
+            v3=verts[i + 2] if i < 2 else None), friction=0.2)
+    body_w, body_h, ski_len, ski_t = 1.0, 2.5, 3.0, 0.3
+    skier_b = wb.create_body(body_type=settings.DYNAMIC_BODY,
+                             position=(-4.0, body_h / 2 + ski_t),
+                             linear_velocity=(0.5, 0.0))
+    wb.create_fixture(skier_b, shapes.Polygon.box(body_w / 2, body_h / 2),
+                      density=1.0)
+    ski = shapes.Polygon.from_vertices(
+        [(-ski_len / 2 - ski_t, -body_h / 2),
+         (-ski_len / 2, -body_h / 2 - ski_t),
+         (ski_len / 2, -body_h / 2 - ski_t),
+         (ski_len / 2 + ski_t, -body_h / 2)])
+    wb.create_fixture(skier_b, ski, density=1.0, friction=0.0,
+                      restitution=0.15)
+    return wb.freeze(device=device, **capacity)
+
+
+def shape_editing(device="cuda", **capacity):
+    """Testbed/Tests/ShapeEditing.h — ground edge + one 4x4 dynamic box
+    with spare fixture slots (four unless the caller passes others); the
+    test attaches/detaches a circle fixture at runtime via
+    mutate.add_fixture/remove_fixture (the 'C'/'D' keys) and toggles the
+    sensor flag (the 'S' key)."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    g = wb.create_body()
+    wb.create_fixture(g, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, 10.0))
+    wb.create_fixture(b, shapes.Polygon.box(4.0, 4.0), density=10.0)
+    return wb.freeze(device=device, **{"fixture_capacity": 4, **capacity})

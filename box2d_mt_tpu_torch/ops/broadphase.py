@@ -7,7 +7,11 @@ pair table comes out in the JAX package's canonical sorted (fixture A,
 fixture B) key order, bit for bit, with its overflow count. Worlds up to
 GRID_THRESHOLD fixture slots take the dense all-pairs finder (with its
 row-extraction capacity rules, K_ROW and HUB_CAP); larger ones the
-uniform-grid hash (`find_pairs_grid`).
+uniform-grid hash (`find_pairs_grid`). Every finder takes the optional
+contact-filter hook `filter_fn(states, fi, fj) -> bool`, consulted on
+integer fixture-index tensors with a leading world axis on top of the
+built-in filters (b2ContactFilter::ShouldCollide override,
+b2WorldCallbacks.h:52-62).
 """
 
 import torch
@@ -176,6 +180,30 @@ def _worlds(obj, sl):
     return type(obj)(**{k: getattr(obj, k)[sl] for k in obj.__dataclass_fields__})
 
 
+def _chunk_state(state, sl, whole: bool):
+    """The worlds `sl` of a State (the State itself when `whole`): what a
+    filter hook sees beside a chunk's index tensors."""
+    if whole:
+        return state
+    from ..state import map_leaves
+    return map_leaves(lambda t: t[sl], state)
+
+
+def _vetoed(filter_fn, state, fi, fj, like):
+    """filter_fn's answer, checked: a bool tensor that broadcasts to the
+    candidates' shape `like`."""
+    ok = filter_fn(state, fi, fj)
+    try:
+        fits = torch.broadcast_shapes(ok.shape, like.shape) == like.shape
+    except (AttributeError, RuntimeError):
+        fits = False
+    if not (fits and torch.is_tensor(ok) and ok.dtype == torch.bool):
+        raise ValueError(f"filter_fn must return a bool tensor broadcasting to "
+                         f"{tuple(like.shape)}, got {getattr(ok, 'dtype', type(ok))} "
+                         f"{tuple(getattr(ok, 'shape', ()))}")
+    return like & ok
+
+
 def _role_order(fx, i_sel, j_sel, valid):
     """(f_a, f_b): role ordering by shape type (narrowphase registration
     order), -1 where not valid."""
@@ -186,10 +214,12 @@ def _role_order(fx, i_sel, j_sel, valid):
     return f_a, f_b
 
 
-def find_pairs_allpairs(state, capacity: int):
+def find_pairs_allpairs(state, capacity: int, filter_fn=None):
     """Dense upper-triangular overlap test over fat AABBs + filtering.
     Returns (f_a, f_b) (W, capacity) role-ordered fixture indices in
-    canonical sorted-key order (-1 = empty) and the overflow count (W,)."""
+    canonical sorted-key order (-1 = empty) and the overflow count (W,).
+    `filter_fn` sees (states, fi, fj) with fi, fj (W, F, F) row and column
+    fixture indices."""
     fx, bd = state.fixtures, state.bodies
     nw, nf = fx.body.shape
     step = max(1, _MASK_ELEMENTS // (nf * nf))
@@ -197,18 +227,24 @@ def find_pairs_allpairs(state, capacity: int):
     parts = []
     for w0 in range(0, nw, step):
         sl = slice(w0, w0 + step)
-        parts.append(_extract(
-            _pair_mask(_worlds(fx, sl), _worlds(bd, sl),
-                       None if jkeys is None else jkeys[sl]), capacity))
+        mask = _pair_mask(_worlds(fx, sl), _worlds(bd, sl),
+                          None if jkeys is None else jkeys[sl])
+        if filter_fn is not None:
+            ii = torch.arange(nf, device=mask.device)
+            mask = _vetoed(filter_fn, _chunk_state(state, sl, step >= nw),
+                           ii[None, :, None].expand(mask.shape),
+                           ii[None, None, :].expand(mask.shape), mask)
+        parts.append(_extract(mask, capacity))
     i_sel, j_sel, valid, overflow = (torch.cat(x) for x in zip(*parts))
     return (*_role_order(fx, i_sel, j_sel, valid), overflow)
 
 
-def _pair_allowed_idx(fx, bodies, jkeys, fi, fj):
+def _pair_allowed_idx(fx, bodies, jkeys, fi, fj, state=None, filter_fn=None):
     """The all-pairs mask's rules on (W, M) candidate fixture indices (-1:
     none): different bodies, one of them dynamic, both enabled, no joint
     with collide_connected False between them, the category/mask/group
-    filters, a registered contact kind."""
+    filters, a registered contact kind, and the filter hook's answer on
+    the clamped indices (`state`: the worlds it sees)."""
     nf = fx.capacity
     fic = fi.clamp(0, nf - 1).long()
     fjc = fj.clamp(0, nf - 1).long()
@@ -230,6 +266,8 @@ def _pair_allowed_idx(fx, bodies, jkeys, fi, fj):
     swap = needs_swap(ti, tj)
     ok &= contact_kind(torch.where(swap, tj, ti),
                        torch.where(swap, ti, tj)) != KIND_INVALID
+    if filter_fn is not None:
+        ok = _vetoed(filter_fn, state, fic, fjc, ok)
     return ok
 
 
@@ -238,7 +276,8 @@ def _pair_allowed_idx(fx, bodies, jkeys, fi, fj):
 _HASH_X, _HASH_Y = -1918851261, -669632447
 
 
-def _grid(fx, bodies, jkeys, capacity, cell_slots, large_cap, spread):
+def _grid(fx, bodies, jkeys, capacity, cell_slots, large_cap, spread, state=None,
+          filter_fn=None):
     """`find_pairs_grid` on a chunk of worlds: (i_sel, j_sel, valid,
     overflow), the arrays of `_extract`'s contract."""
     nw, nf = fx.body.shape
@@ -334,7 +373,8 @@ def _grid(fx, bodies, jkeys, capacity, cell_slots, large_cap, spread):
     cand_ok = torch.cat([cand_on.reshape(nw, -1), l_ok.reshape(nw, -1)], 1)
     cand_ok &= _pair_allowed_idx(fx, bodies, jkeys,
                                  torch.where(cand_ok, cand_i, -1).to(torch.int32),
-                                 torch.where(cand_ok, cand_j, -1).to(torch.int32))
+                                 torch.where(cand_ok, cand_j, -1).to(torch.int32),
+                                 state, filter_fn)
 
     # canonical sorted keys; a pair found twice (two covered cells of one
     # fixture in one bucket) is kept once
@@ -355,7 +395,7 @@ def _grid(fx, bodies, jkeys, capacity, cell_slots, large_cap, spread):
 
 
 def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int = 16,
-                    spread: bool = False):
+                    spread: bool = False, filter_fn=None):
     """Uniform-grid-hash pair finder for large worlds (the JAX package's
     `find_pairs_grid`, the analog of b2DynamicTreeOfTrees' sparse grid of
     sub-trees, Box2D/MT/b2DynamicTreeOfTrees.h:30-46), batched over worlds:
@@ -367,7 +407,8 @@ def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int =
     each small fixture covers <= 2x2 cells, hashed into next_pow2(2F)
     buckets of `cell_slots` slots (by the hash's low bits as in the JAX
     package, or its high bits with `spread`). Dropped bucket entries and
-    large fixtures are counted in the overflow. No host read."""
+    large fixtures are counted in the overflow. `filter_fn` sees (states,
+    fi, fj) with fi, fj (W, M) candidate fixture indices. No host read."""
     fx, bd = state.fixtures, state.bodies
     nw, nf = fx.body.shape
     per_world = nf * 4 * cell_slots + min(large_cap, nf) * nf
@@ -375,19 +416,21 @@ def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int =
     jkeys = _forbidden_joint_keys(state.joints, nf)
     parts = [_grid(_worlds(fx, sl), _worlds(bd, sl),
                    None if jkeys is None else jkeys[sl], capacity, cell_slots,
-                   large_cap, spread)
+                   large_cap, spread, _chunk_state(state, sl, step >= nw), filter_fn)
              for sl in (slice(w0, w0 + step) for w0 in range(0, nw, step))]
     i_sel, j_sel, valid, overflow = (torch.cat(x) for x in zip(*parts))
     return (*_role_order(fx, i_sel, j_sel, valid), overflow)
 
 
-def find_pairs(state, capacity: int):
+def find_pairs(state, capacity: int, filter_fn=None):
     """Strategy dispatch on the static fixture capacity, as in the JAX
     package: all-pairs up to GRID_THRESHOLD slots, the grid hash above,
-    here spread over its buckets with GRID_CELL_SLOTS slots each."""
+    here spread over its buckets with GRID_CELL_SLOTS slots each. Both
+    consult the optional `filter_fn` contact-filter hook."""
     if state.fixtures.capacity <= GRID_THRESHOLD:
-        return find_pairs_allpairs(state, capacity)
-    return find_pairs_grid(state, capacity, cell_slots=GRID_CELL_SLOTS, spread=True)
+        return find_pairs_allpairs(state, capacity, filter_fn)
+    return find_pairs_grid(state, capacity, cell_slots=GRID_CELL_SLOTS, spread=True,
+                           filter_fn=filter_fn)
 
 
 def carry_over_contacts(old, f_a, f_b, nf: int):

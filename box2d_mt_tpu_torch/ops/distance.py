@@ -11,8 +11,8 @@ one host read per trip; a lane that is done is frozen, so each lane ends
 with the scalar function's result. `time_of_impact` is the plain version
 of the time-of-impact kernel (`ops/toi.py`, `csrc/toi.cu`), which runs
 the same arithmetic in the same order, one thread per lane.
-`test_overlap` is b2TestOverlap, the sensors' touch test. `shape_cast`
-comes with raycasts.
+`test_overlap` is b2TestOverlap, the sensors' touch test, and
+`shape_cast` is b2ShapeCast.
 """
 
 from typing import NamedTuple
@@ -282,6 +282,85 @@ def test_overlap(verts_a, count_a, radius_a, pa, qa,
                                     verts_b, count_b, radius_b, pb, qb,
                                     use_radii=True, syncs=syncs)
     return d < 10.0 * EPS
+
+
+def shape_cast(verts_a, count_a, radius_a, pa, qa,
+               verts_b, count_b, radius_b, pb, qb, translation_b, syncs=None):
+    """b2ShapeCast (b2Distance.cpp:608-745) over lanes: conservative
+    advancement of proxy B translating by `translation_b` (L, 2) against
+    the stationary proxy A.
+
+    Returns (hit (L,) bool, point (L, 2), normal (L, 2), lambda (L,),
+    iterations (L,) i32), each lane as the JAX package's branch-free
+    scalar loop leaves it: the reference's early returns (a miss, lambda
+    past 1, an overlapping simplex) stop a lane through `fail`, and a lane
+    whose loop condition fails is frozen. One host read per trip, through
+    `syncs` when one is given."""
+    n = count_a.shape[0]
+    dev = count_a.device
+    ra = torch.clamp_min(radius_a, settings.POLYGON_RADIUS)
+    rb = torch.clamp_min(radius_b, settings.POLYGON_RADIUS)
+    sigma = torch.clamp_min(ra + rb - settings.POLYGON_RADIUS, settings.POLYGON_RADIUS)
+    tol = 0.5 * settings.LINEAR_SLOP
+    r = translation_b
+
+    def supports(v):
+        ia = _support(verts_a, count_a, rot_t_vec(qa, -v))
+        ib = _support(verts_b, count_b, rot_t_vec(qb, v))
+        return (ia, rot_vec(qa, _take(verts_a, ia)) + pa,
+                ib, rot_vec(qb, _take(verts_b, ib)) + pb)
+
+    _, wa0, _, wb0 = supports(r)
+    v = wa0 - wb0
+    zi = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    bary = torch.zeros((n, 3), device=dev)
+    bary[:, 0] = 1.0
+    s = _Simplex(wa=torch.zeros((n, 3, 2), device=dev), wb=torch.zeros((n, 3, 2), device=dev),
+                 ia=zi, ib=zi, bary=bary, count=torch.zeros(n, dtype=torch.int32, device=dev))
+    k = torch.zeros(n, dtype=torch.int32, device=dev)
+    normal = torch.zeros((n, 2), device=dev)
+    lam = torch.zeros(n, device=dev)
+    fail = torch.zeros(n, dtype=torch.bool, device=dev)
+    i3 = torch.arange(3, device=dev)
+    for _ in range(GJK_ITERS):
+        live = (k < GJK_ITERS) & ~fail & ((torch.sqrt(dot(v, v)) - sigma).abs() > tol)
+        if not (bool(live.any()) if syncs is None else syncs.flag(live.any())):
+            break
+        ia, wa, ib, wb = supports(v)
+        p = wa - wb
+        vu, _ = normalize(v)
+        vp = dot(vu, p)
+        vr = dot(vu, r)
+        advance = vp - sigma > lam * vr
+        lam_new = (vp - sigma) / torch.where(vr != 0.0, vr, 1.0)
+        fail2 = fail | (advance & ((vr <= 0.0) | (lam_new > 1.0)))
+        step = advance & ~fail2
+        lam2 = torch.where(step, lam_new, lam)
+        normal2 = torch.where(step[:, None], -vu, normal)
+        cnt = torch.where(advance, 0, s.count)
+        # the simplex is reversed: B - A, with B shifted by lambda * r
+        put = i3 == cnt.clamp(0, 2)[:, None]
+        s2 = _Simplex(
+            wa=torch.where(put[..., None], (wb + lam2[:, None] * r)[:, None], s.wa),
+            wb=torch.where(put[..., None], wa[:, None], s.wb),
+            ia=torch.where(put, ib[:, None], s.ia), ib=torch.where(put, ia[:, None], s.ib),
+            bary=s.bary, count=(cnt + 1).to(torch.int32))
+        s2 = _where(s2.count == 2, _solve2(s2), _where(s2.count == 3, _solve3(s2), s2))
+        fail2 = fail2 | (s2.count == 3)              # overlap
+        bw = torch.where(i3 < s2.count[:, None], s2.bary, 0.0)
+        v2 = (bw[..., None] * (s2.wb - s2.wa)).sum(1)
+        s = _where(live, s2, s)
+        v = torch.where(live[:, None], v2, v)
+        normal = torch.where(live[:, None], normal2, normal)
+        lam = torch.where(live, lam2, lam)
+        fail = torch.where(live, fail2, fail)
+        k = k + live.to(torch.int32)
+
+    # the witness point on A: sum(bary * wb slot) (the slots are reversed)
+    bw = torch.where(i3 < s.count.clamp_min(1)[:, None], s.bary, 0.0)
+    point_a = torch.where((s.count == 0)[:, None], wa0, (bw[..., None] * s.wb).sum(1))
+    normal = torch.where((dot(v, v) > 0.0)[:, None], -normalize(v)[0], normal)
+    return ~fail, point_a + ra[:, None] * normal, normal, lam, k
 
 
 # --------------------------------------------------------------------------

@@ -149,11 +149,37 @@ on any failure:
      tiles(4, 20, 2) and multithread_demo(200) goldens as one batch for
      240 steps, each under 0.05; (g) K1's device time and bound at (b)'s
      and (d)'s last step. `python3 chip_smoke.py --phase16` runs the
-     build and this phase alone.
+     build and this phase alone;
+ 17. the PreSolve hook and between-step mutations: (a) 256 x
+     conveyor_belt x 120 and 256 x one_sided_platform x 120 with their
+     batched hooks (a belt speed on the platform's contacts; the platform
+     disabled while the actor is below its top) through K1 and K2,
+     launches counted from 0 before each roll: no NaN, every box carried
+     6 m along the belt, every actor on the platform at 11.005 +- 0.05;
+     worlds*steps/s, host syncs and CUDA kernels a step, and the same
+     conveyor roll without the hook beside it; K1 against its plain
+     version on the step with the most solved lanes and K2 on the round
+     with the most touching lanes (phases 2 and 3's rules); (b) the two
+     hook goldens (conveyor_belt_240, one_sided_platform_240) as one batch
+     under one hook, and the four mutation goldens (shape_editing,
+     breakable with its split at step 167 on the TOI sub-step's PostSolve
+     impulse, collision_processing, skier) as one batch driven by `mutate`
+     between steps, at the JAX package's bounds (breakable's up to its
+     break); (c) 128 x pyramid(6) with a revolute and a distance joint
+     added at run time by `mutate` (different bodies in each world), 60
+     steps through K3-K6, each held against its plain version on the
+     busiest step (phase 10's rules); (d) shapecast.jsonl, rope_pbd_240
+     for a batch of 1024 ropes (each step one replayed CUDA graph of its
+     launches), and ray casts over 4096 worlds, each equal
+     to the CPU result (1e-5; the rope's 60th step to 1e-4) and the
+     shape cast and the rope within the JAX package's bounds of their C++
+     traces. `python3 chip_smoke.py --phase17` runs the build and this
+     phase alone.
 
 The last lines are the card line, the kernels' JSON record (launches
 counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
-256 x car and phase 16's three rolls, by path and summed) and
+256 x car, phase 16's three rolls and phase 17's three, by path and
+summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -878,14 +904,14 @@ def library_calls(first):
             "unpack_packed": (lambda: torch.zeros_like(rows).scatter_(2, idx5, rows), ())}
 
 
-def kernels_per_step(states, n_steps=3):
+def kernels_per_step(states, n_steps=3, **kw):
     """CUDA kernels and copies per step over a short profiled window, or
     None when the profiler reports no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        roll(states, n_steps)
+        roll(states, n_steps, **kw)
         torch.cuda.synchronize()
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     return n / n_steps if n else None
@@ -1728,6 +1754,498 @@ def large_worlds(dev):
     return launches, times, err_k1, err_k2, err_sw
 
 
+# ---- phase 17: the PreSolve hook and between-step mutations
+
+HOOK_PATHS = {"conveyor_belt": (256, 120), "one_sided_platform": (256, 120)}
+# the goldens of phase 17(b): golden file, steps the bound reads, the JAX
+# package's bound (tests/test_golden_interactive.py, tests/test_golden_zoo.py
+# :321-335); breakable's bound reads the steps before its break
+HOOK_GOLDENS = {"conveyor_belt": ("conveyor_belt_240", 240, 0.35),
+                "one_sided_platform": ("one_sided_platform_240", 240, 0.05)}
+MUTATION_GOLDENS = {"shape_editing": ("shape_editing_240", 240, 0.05),
+                    "breakable": ("breakable_240", 167, 0.1),
+                    "collision_processing": ("collision_processing_240", 240, 0.2),
+                    "skier": ("skier_180", 180, 0.02)}
+MUTATION_CAPACITY = dict(body_capacity=8, fixture_capacity=8, contact_capacity=64)
+BREAK_STEP = 167
+
+
+def belt_hook(states, view):
+    """ConveyorBelt.h:67-84, batched: the platform (fixture 1) moves its
+    contacts at 5 m/s."""
+    return {"tangent_speed": ((view.f_a == 1) | (view.f_b == 1)) * 5.0}
+
+
+def one_sided_hook(states, view):
+    """OneSidedPlatform.h:PreSolve, batched: the platform's (body 1)
+    contacts are off while the actor's (body 2) center is below its top."""
+    below = states.bodies.c[:, 2, 1] < 10.5
+    return ~(((view.body_a == 1) | (view.body_b == 1)) & below[:, None])
+
+
+HOOKS = {"conveyor_belt": belt_hook, "one_sided_platform": one_sided_hook}
+
+
+class BusiestRecorder(Recorder):
+    """A Recorder that keeps every step's solve-middle inputs, to hold K1
+    on the step with the most solved lanes."""
+
+    def __init__(self):
+        super().__init__()
+        self.middles = []
+
+    def solve_middle(self, *args):
+        self.middles.append((args, args[2][:, -1].sum()))
+        return super().solve_middle(*args)
+
+    def busiest_middle(self):
+        import torch
+        lanes = torch.stack([n for _, n in self.middles]).tolist()
+        return self.middles[max(range(len(lanes)), key=lanes.__getitem__)][0]
+
+
+def hook_path(name, dev):
+    """17(a): one hook world's path through K1 and K2, launches from 0."""
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import replicate
+    n_worlds, n_steps = HOOK_PATHS[name]
+    hook = HOOKS[name]
+    one = getattr(scenes, name)(device=dev)
+    roll(replicate(one, 4), 3, pre_solve_fn=hook)       # first-use allocations
+    start = replicate(one, n_worlds)
+    rec = BusiestRecorder()
+    torch.cuda.synchronize()
+    for f in (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH:
+        f.launches = 0
+    t0 = time.perf_counter()
+    states, syncs = roll(start, n_steps, pre_solve_fn=hook, middle=rec.solve_middle,
+                         toi=rec.time_of_impact)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"solve_middle": sm.solve_middle.launches,
+                "toi": ktoi.time_of_impact_lanes.launches}
+    label = f"{n_worlds} x {name}"
+    b = states.bodies
+    if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
+        raise AssertionError(f"{label}: NaN/inf in the body state")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{label}: K1 or K2 was not launched: {launches}")
+    if name == "conveyor_belt":
+        moved = float((b.c[:, 2:7, 0] - start.bodies.c[:, 2:7, 0]).min())
+        check = f"every box carried >= {moved:.3f} m"
+        if not moved > 6.0:           # the C++ trace: 6.52 m
+            raise AssertionError(f"{label}: the belt did not carry the boxes: {moved}")
+    else:
+        y = b.c[:, 2, 1]
+        check = f"actor y in [{float(y.min()):.4f}, {float(y.max()):.4f}]"
+        if not float((y - 11.005).abs().max()) < 0.05:
+            raise AssertionError(f"{label}: the actor is not on the platform: {check}")
+    per_step = kernels_per_step(states, pre_solve_fn=hook)
+    out = dict(launches=launches, ws=n_worlds * n_steps / elapsed, syncs=syncs / n_steps,
+               kernels=per_step)
+    print(f"phase 17(a) {label} x {n_steps} steps with its hook, continuous=True: "
+          f"{elapsed:.3f} s, {out['ws']:.1f} worlds*steps/s, launches={launches}, "
+          f"host syncs/step={out['syncs']:.2f}, CUDA kernels+copies/step="
+          f"{'not measured' if per_step is None else f'{per_step:.0f}'}; {check}")
+    if name == "conveyor_belt":
+        # the roll without the hook, where the boxes settle on a still
+        # platform and sleep, and with a hook that changes nothing (the same
+        # motion): the hook's own cost is the second against the first
+        rolls = {}
+        for kind, kw in (("without the hook", {}),
+                         ("with a hook that changes nothing",
+                          dict(pre_solve_fn=lambda st, v: {"tangent_speed": v.tangent_speed}))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            end, n_syncs = roll(replicate(one, n_worlds), n_steps, **kw)
+            torch.cuda.synchronize()
+            rolls[kind] = (time.perf_counter() - t0, n_syncs, end)
+            el, n_syncs, end = rolls[kind]
+            per = kernels_per_step(end, **kw) if not kw else None
+            out[kind] = dict(ws=n_worlds * n_steps / el, syncs=n_syncs / n_steps, kernels=per)
+            print(f"phase 17(a) {label} x {n_steps} steps {kind}: {el:.3f} s, "
+                  f"{out[kind]['ws']:.1f} worlds*steps/s, host syncs/step="
+                  f"{out[kind]['syncs']:.2f}, CUDA kernels+copies/step="
+                  f"{'not measured' if per is None else f'{per:.0f}'}")
+        (el0, s0, e0), (el1, s1, e1) = rolls.values()
+        print(f"phase 17(a) {label}: the hook's own cost {1e3 * (el1 - el0) / n_steps:.2f} ms "
+              f"a step, host syncs equal {s0 == s1}, states equal "
+              f"{bool(torch.equal(e0.bodies.c, e1.bodies.c))}")
+        if s0 != s1 or not torch.equal(e0.bodies.c, e1.bodies.c):
+            raise AssertionError(f"{label}: a hook that changes nothing changed the roll")
+    out["err_k1"] = compare_middle(rec.busiest_middle(), f"{label}, busiest step",
+                                   phase="17(a)")
+    out["err_k2"] = compare_toi(rec.busiest_toi(), f"{label}, busiest round",
+                                min_touching=1, phase="17(a)")
+    return out
+
+
+def golden_errors(kept, refs, names):
+    """Worst error per world and step against the traces (bodies in
+    reverse creation order, live slots only), or None at a step whose
+    body count differs. kept: per step (positions+angles (W, N, 3), body
+    types (W, N)) on the host."""
+    import numpy as np
+    errs = {n: [] for n in names}
+    for i, (pa, bt) in enumerate(kept):
+        for w, (n, ref) in enumerate(zip(names, refs)):
+            if i >= len(ref):
+                continue
+            slots = [k for k in range(bt.shape[1] - 1, -1, -1) if bt[w, k] >= 0]
+            rows = np.asarray([rb[:3] for rb in ref[i]["bodies"]])
+            errs[n].append(None if len(slots) != len(rows) else
+                           float(np.abs(pa[w, slots] - rows).max()))
+    return errs
+
+
+def hook_goldens(dev):
+    """17(b): conveyor_belt_240 and one_sided_platform_240 as one batch
+    under one hook (the belt in world 0, the one-sided platform in 1)."""
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import concat_worlds
+
+    def hook(states, view):
+        conveyor = (torch.arange(states.n_worlds, device=view.f_a.device) == 0)[:, None]
+        belt = belt_hook(states, view)["tangent_speed"] * conveyor
+        return {"tangent_speed": belt,
+                "enabled": one_sided_hook(states, view) | conveyor}
+
+    names = list(HOOK_GOLDENS)
+    states = concat_worlds([getattr(scenes, n)(device=dev) for n in names])
+    refs = [[json.loads(line) for line in open(ROOT / f"tests/golden/{f}.jsonl")]
+            for f, _, _ in HOOK_GOLDENS.values()]
+    kept = []
+    t0 = time.perf_counter()
+    for _ in range(240):
+        states, _ = checked_step(states, DT, pre_solve_fn=hook)
+        b = states.bodies
+        kept.append((torch.cat([b.xf_p, b.a[..., None]], -1), b.body_type))
+    kept = [(p.cpu().numpy(), t.cpu().numpy()) for p, t in kept]
+    elapsed = time.perf_counter() - t0
+    return report_goldens("17(b) hook golden", kept, refs, names, HOOK_GOLDENS, elapsed)
+
+
+def report_goldens(label, kept, refs, names, spec, elapsed, extra=None):
+    errs = golden_errors(kept, refs, names)
+    worst = {}
+    for n, (_, steps, bound) in spec.items():
+        e = errs[n]
+        if any(x is None for x in e):
+            raise AssertionError(f"{n}: the body count differs from the trace's")
+        worst[n] = (max(e[:steps]), max(e))
+        print(f"phase {label} {n} ({len(names)} in its batch, {elapsed:.3f} s): worst error "
+              f"{worst[n][0]:.4g} over steps 0-{steps - 1} (bound {bound}), {worst[n][1]:.4g} "
+              f"over the trace{'' if extra is None else extra.get(n, '')}")
+        if not worst[n][0] < bound:
+            raise AssertionError(f"{n}: the C++ golden is not met")
+    return worst
+
+
+def mutation_goldens(dev):
+    """17(b): shape_editing, breakable, collision_processing and skier as
+    one batch of four worlds, each driven between steps as its JAX test
+    drives it, with batched indices (-1: leave the world alone)."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch import mutate, settings, shapes
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.state import concat_worlds
+    names = list(MUTATION_GOLDENS)
+    se, br, cp, sk = range(4)
+
+    def at(w, i):
+        t = torch.full((4,), -1, dtype=torch.long, device=dev)
+        t[w] = int(i)
+        return t
+
+    st = concat_worlds([getattr(scenes, n)(device=dev, **MUTATION_CAPACITY) for n in names])
+    st = mutate.set_transform(st, at(sk, 1), (-0.7, float(st.bodies.xf_p[sk, 1, 1])), 0.0)
+    refs = [[json.loads(line) for line in open(ROOT / f"tests/golden/{f}.jsonl")]
+            for f, _, _ in MUTATION_GOLDENS.values()]
+    kept, fixture2, broke, do_break, break_step = [], None, False, False, -1
+    velocity, angular = None, 0.0
+    t0 = time.perf_counter()
+    for i in range(240):
+        if i == 60:
+            st, fixture2 = mutate.add_fixture(st, at(se, 1), shapes.Circle(3.0, (0.5, -4.0)),
+                                              density=10.0)
+            st = mutate.set_awake(st, at(se, 1), True)
+        elif i == 120:
+            st = mutate.set_sensor(st, fixture2, True)
+        elif i == 180:
+            st = mutate.remove_fixture(st, fixture2)
+            st = mutate.set_awake(st, at(se, 1), True)
+        if do_break and not broke:
+            # Breakable.h Break(): the second half becomes its own body, both
+            # pieces at the velocities cached before the impact step
+            center = st.bodies.c[br, 1].clone()
+            st = mutate.remove_fixture(st, at(br, 2))
+            only = torch.arange(4, device=dev) == br
+            st, b2 = mutate.add_body(st, body_type=settings.DYNAMIC_BODY,
+                                     position=st.bodies.xf_p[br, 1], angle=st.bodies.a[br, 1],
+                                     worlds=only)
+            b2 = int(b2[br])
+            st, _ = mutate.add_fixture(st, at(br, b2),
+                                       shapes.Polygon.box(0.5, 0.5, (0.5, 0.0), 0.0),
+                                       density=1.0)
+            for b in (1, b2):
+                r = st.bodies.c[br, b] - center
+                st = mutate.set_angular_velocity(st, at(br, b), angular)
+                st = mutate.set_linear_velocity(
+                    st, at(br, b), velocity + torch.stack([-angular * r[1], angular * r[0]]))
+            broke, do_break, break_step = True, False, i
+        if not broke:
+            velocity, angular = st.bodies.v[br, 1].clone(), float(st.bodies.w[br, 1])
+        st, ev = checked_step(st, DT)
+        impulse = torch.maximum(ev.normal_impulse[br].max(), ev.toi_normal_impulse[br].max())
+        if not broke and float(impulse) > 40.0:
+            do_break = True
+        b = st.bodies
+        kept.append((torch.cat([b.xf_p, b.a[..., None]], -1).cpu().numpy(),
+                     b.body_type.cpu().numpy()))
+        # CollisionProcessing.h: the lighter body of each touching dynamic
+        # pair is destroyed
+        fa, fb = ev.f_a[cp].cpu().numpy(), ev.f_b[cp].cpu().numpy()
+        fxb = st.fixtures.body[cp].cpu().numpy()
+        inv_m, bt = b.inv_mass[cp].cpu().numpy(), kept[-1][1][cp]
+        nuke = set()
+        for ci in np.flatnonzero(ev.touching[cp].cpu().numpy()):
+            ba, bb = int(fxb[fa[ci]]), int(fxb[fb[ci]])
+            if min(ba, bb) >= 0 and min(bt[ba], bt[bb]) >= 0 and inv_m[ba] > 0 and inv_m[bb] > 0:
+                nuke.add(ba if 1 / inv_m[bb] > 1 / inv_m[ba] else bb)
+        for body in sorted(nuke):
+            st = mutate.remove_body(st, at(cp, body))
+    elapsed = time.perf_counter() - t0
+    worst = report_goldens("17(b) mutation golden", kept, refs, names, MUTATION_GOLDENS,
+                           elapsed, {"breakable": f"; split at step {break_step}"})
+    if break_step != BREAK_STEP:
+        raise AssertionError(f"breakable split at step {break_step}, not {BREAK_STEP}")
+    return worst
+
+
+def runtime_joints(dev, n_worlds=128, n_steps=60):
+    """17(c): 128 x pyramid(6), each world with a revolute joint pinning one
+    box to the ground and a distance joint between two others, added by
+    `mutate` with different bodies in each world; 60 steps through K3-K6
+    (and K2), each sandwich kernel held against its plain version on the
+    busiest step."""
+    import torch
+    from box2d_mt_tpu_torch import mutate
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import replicate
+    states = replicate(scenes.pyramid(6, device=dev,
+                                      joint_capacity={"revolute": 2, "distance": 2}), n_worlds)
+    k = torch.arange(n_worlds, device=dev) % 15 + 1      # boxes 1-15 of 21
+    c = states.bodies.c
+    w = torch.arange(n_worlds, device=dev)
+    states, i_rev = mutate.add_revolute_joint(states, 0, k, c[w, k] + 0.5)
+    states, i_dist = mutate.add_distance_joint(states, k + 3, k + 6, c[w, k + 3], c[w, k + 6])
+    if bool((i_rev < 0).any()) or bool((i_dist < 0).any()):
+        raise AssertionError("a runtime joint found no free slot")
+    rec = SandwichRecorder()
+    torch.cuda.synchronize()
+    counters = sm.SANDWICH + (sm.solve_middle, ktoi.time_of_impact_lanes)
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    states, syncs = roll(states, n_steps, sandwich=rec.hook())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(SANDWICH_NAMES + ("solve_middle", "toi"),
+                        (f.launches for f in counters)))
+    b = states.bodies
+    if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
+        raise AssertionError("runtime joints: NaN/inf in the body state")
+    if min(launches[n] for n in SANDWICH_NAMES) <= 0 or launches["solve_middle"]:
+        raise AssertionError(f"runtime joints: launches {launches}")
+    # the pinned box still turns about its anchor: the anchor's two images
+    rj = states.joints.revolute
+    xf = lambda body, local: (b.xf_p[w, body] + torch.stack(   # noqa: E731
+        [torch.cos(b.a[w, body]) * local[:, 0] - torch.sin(b.a[w, body]) * local[:, 1],
+         torch.sin(b.a[w, body]) * local[:, 0] + torch.cos(b.a[w, body]) * local[:, 1]], -1))
+    gap = float((xf(k, rj.local_anchor_b[w, 0]) - xf(torch.zeros_like(k),
+                                                      rj.local_anchor_a[w, 0])).norm(dim=-1).max())
+    print(f"phase 17(c) {n_worlds} x pyramid(6) + a runtime revolute and distance joint x "
+          f"{n_steps} steps: {elapsed:.3f} s, {n_worlds * n_steps / elapsed:.1f} "
+          f"worlds*steps/s, launches={launches}, host syncs/step={syncs / n_steps:.2f}, "
+          f"revolute anchor gap {gap:.4f} m")
+    if not gap < 0.05:
+        raise AssertionError(f"runtime revolute joints do not hold: gap {gap}")
+    err, _ = compare_sandwich(rec.busiest(), f"{n_worlds} x pyramid(6) + runtime joints, "
+                                             "busiest step", phase="17(c)")
+    return launches, err
+
+
+def query_lanes():
+    """tests/golden/shapecast.jsonl as shape_cast's arguments (host numpy)."""
+    import numpy as np
+    rows = [json.loads(line) for line in open(ROOT / "tests/golden/shapecast.jsonl")]
+
+    def proxy(d):
+        v = np.zeros((8, 2), np.float32)
+        vs = np.asarray(d["verts"], np.float32)
+        v[:len(vs)] = vs
+        return v, len(vs), d["radius"]
+
+    a, b = [proxy(r["a"]) for r in rows], [proxy(r["b"]) for r in rows]
+    xfa = np.asarray([r["xfa"] for r in rows], np.float32)
+    xfb = np.asarray([r["xfb"] for r in rows], np.float32)
+    lanes = (np.stack([x[0] for x in a]), np.asarray([x[1] for x in a], np.int32),
+             np.asarray([x[2] for x in a], np.float32), xfa[:, 0:2], xfa[:, 2],
+             np.stack([x[0] for x in b]), np.asarray([x[1] for x in b], np.int32),
+             np.asarray([x[2] for x in b], np.float32), xfb[:, 0:2], xfb[:, 2],
+             np.asarray([r["tr"] for r in rows], np.float32))
+    return rows, lanes
+
+
+def run_shape_cast(lanes, device):
+    import torch
+    from box2d_mt_tpu_torch import shape_cast
+    from box2d_mt_tpu_torch.math2d import rot_from_angle
+    t = [torch.from_numpy(x).to(device) for x in lanes]
+    return [x.cpu().numpy() for x in shape_cast(
+        t[0], t[1], t[2], t[3], rot_from_angle(t[4]), t[5], t[6], t[7], t[8],
+        rot_from_angle(t[9]), t[10])]
+
+
+def ray_world(device):
+    """A circle, a rotated box, a rotated hull with a circle, and edges."""
+    from box2d_mt_tpu_torch import settings, shapes
+    from box2d_mt_tpu_torch.world import WorldBuilder
+    wb = WorldBuilder(gravity=(0.0, 0.0))
+    wb.create_fixture(wb.create_body(position=(5.0, 0.0)), shapes.Circle(1.0))
+    wb.create_fixture(wb.create_body(position=(10.0, 0.0), angle=0.4),
+                      shapes.Polygon.box(1.0, 0.5))
+    g = wb.create_body()
+    wb.create_fixture(g, shapes.Edge((14.0, -2.0), (14.0, 2.0)))
+    wb.create_fixture(g, shapes.Edge((-4.0, -3.0), (20.0, -3.0)))
+    b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(7.0, 3.0), angle=1.1)
+    wb.create_fixture(b, shapes.Polygon.from_vertices(
+        [(-1.0, 0.0), (1.0, -0.5), (1.5, 0.5), (0.0, 1.2), (-0.8, 0.9)]), density=1.0)
+    wb.create_fixture(b, shapes.Circle(0.4, (0.3, -1.0)), density=1.0)
+    return wb.freeze(device=device)
+
+
+def queries_and_rope(dev, n_worlds=4096, n_ropes=1024):
+    """17(d): the shape cast of the C++ fixtures, ray casts over 4096
+    worlds (a ray each) and 1024 ropes on the card, each equal to the CPU
+    result; the shape cast and the rope held to their C++ traces as the
+    JAX package's tests hold them."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch import ray_cast_all, ray_cast_closest, rope
+    from box2d_mt_tpu_torch.state import replicate
+    rows, lanes = query_lanes()
+    card, host = run_shape_cast(lanes, dev), run_shape_cast(lanes, "cpu")
+    hit = host[0]
+    # lambda and, where a lane hits, the point to 1e-5 and the normal (v / |v|
+    # with |v| near the radii's sum) to 1e-4, as tests/test_torch_queries.py
+    sc_err = max(float(np.abs(card[3] - host[3]).max()),
+                 float(np.abs(card[1][hit] - host[1][hit]).max()))
+    sc_n = float(np.abs(card[2][hit] - host[2][hit]).max())
+    ref_hit = np.asarray([r["hit"] for r in rows]) > 0
+    ref_lam = np.asarray([r["lambda"] for r in rows])
+    both = card[0] & ref_hit & (ref_lam > 0)
+    lam_bad = int((card[0] & ref_hit & (np.abs(card[3] - ref_lam) > 5e-3)).sum())
+    # a lane whose |v| ends within rounding of the loop's tolerance may take
+    # one trip more or less on the card; its lambda stays within 1e-5
+    print(f"phase 17(d) shape_cast, {len(rows)} C++ fixtures on the card: hits equal to the "
+          f"CPU's {np.array_equal(card[0], hit)}, iterations equal in "
+          f"{int((card[4] == host[4]).sum())} lanes, max|d| lambda/point {sc_err:.3g}, normal "
+          f"{sc_n:.3g}; against "
+          f"C++: {int((card[0] != ref_hit).sum())} hit and {lam_bad} lambda mismatches")
+    if (not np.array_equal(card[0], hit) or np.abs(card[4] - host[4]).max() > 1
+            or sc_err > 1e-5 or sc_n > 1e-4
+            or (card[0] != ref_hit).sum() > max(2, len(rows) // 50)
+            or lam_bad > max(2, int(both.sum()) // 50)):
+        raise AssertionError("shape_cast on the card disagrees")
+
+    rng = np.random.default_rng(0)
+    p1 = rng.uniform([-6.0, -5.0], [2.0, 6.0], (n_worlds, 2)).astype(np.float32)
+    p2 = rng.uniform([8.0, -5.0], [22.0, 6.0], (n_worlds, 2)).astype(np.float32)
+    out = {}
+    for d in (dev, "cpu"):
+        st = replicate(ray_world(d), n_worlds)
+        a, b = torch.from_numpy(p1).to(d), torch.from_numpy(p2).to(d)
+        out[str(d)] = [x.cpu().numpy() for x in (*ray_cast_all(st, a, b),
+                                                  *ray_cast_closest(st, a, b))]
+    gpu, cpu = out[str(dev)], out["cpu"]
+    h = cpu[0]
+    ray_err = max(float(np.abs(gpu[1][h] - cpu[1][h]).max()),
+                  float(np.abs(gpu[8][cpu[4]] - cpu[8][cpu[4]]).max()))
+    print(f"phase 17(d) ray casts, {n_worlds} worlds x {h.shape[1]} fixture slots, a ray "
+          f"each: {int(h.sum())} hits, hit masks equal to the CPU's "
+          f"{np.array_equal(gpu[0], h)}, closest fixtures equal "
+          f"{np.array_equal(gpu[5], cpu[5])}, max|d fraction| {ray_err:.3g}")
+    if not (np.array_equal(gpu[0], h) and np.array_equal(gpu[5], cpu[5])) or ray_err > 1e-5:
+        raise AssertionError("ray casts on the card disagree with the CPU's")
+
+    ref = [json.loads(line) for line in open(ROOT / "tests/golden/rope_pbd_240.jsonl")]
+
+    def build(d):
+        n = 40
+        st = rope.make_rope([(0.0, 20.0 - 0.25 * i) for i in range(n)],
+                            [0.0, 0.0] + [1.0] * (n - 2), gravity=(0.0, -10.0), damping=0.1,
+                            k2=1.0, k3=0.5, device=d)
+        return rope.set_angle(st, 0.25 * 3.14159265)
+
+    # a rope step is ~3,600 small kernels and reads the host nothing, so
+    # its launches are captured once in a CUDA graph and replayed
+    ropes, one = rope.replicate(build(dev), n_ropes), build("cpu")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rope.rope_step(ropes, DT, 1)                     # warm-up, off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stepped = rope.rope_step(ropes, DT, 1)
+    refs = torch.tensor([r["ps"] for r in ref[:240]], device=dev)
+    errs = []
+    t0 = time.perf_counter()
+    for i in range(240):
+        graph.replay()
+        ropes.ps.copy_(stepped.ps)
+        ropes.vs.copy_(stepped.vs)
+        if i < 60:
+            one = rope.rope_step(one, DT, 1)
+        if i == 59:
+            vs_cpu = float((ropes.ps.cpu() - one.ps).abs().max())
+        errs.append((ropes.ps - refs[i]).abs().amax())
+    errs = torch.stack(errs).cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    print(f"phase 17(d) rope_pbd_240, {n_ropes} ropes x 240 steps on the card, each step a "
+          f"replayed CUDA graph ({elapsed:.3f} s with 60 CPU steps beside): worst error "
+          f"{errs[:60].max():.3g} over steps 0-59 "
+          f"(bound 2e-3), {errs.max():.3g} over 240 (bound 0.05); max|card - CPU| at step "
+          f"60 {vs_cpu:.3g}")
+    if not (errs[:60].max() < 2e-3 and errs.max() < 0.05 and vs_cpu < 1e-4):
+        raise AssertionError("the rope on the card misses its trace or the CPU's")
+
+
+def hooks_and_mutations(dev):
+    """Phase 17. Returns the launches of its three paths and the kernels'
+    largest differences from their plain versions."""
+    paths, err_k1, err_k2 = {}, 0.0, 0.0
+    for name in HOOK_PATHS:
+        out = hook_path(name, dev)
+        n_worlds, n_steps = HOOK_PATHS[name]
+        paths[f"{n_worlds} x {name} x {n_steps} (hook)"] = out["launches"]
+        err_k1, err_k2 = max(err_k1, out["err_k1"]), max(err_k2, out["err_k2"])
+    hook_goldens(dev)
+    mutation_goldens(dev)
+    launches_j, err_sw = runtime_joints(dev)
+    paths["128 x pyramid(6) + runtime joints x 60"] = launches_j
+    queries_and_rope(dev)
+    return paths, err_k1, err_k2, err_sw
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1750,6 +2268,7 @@ def main() -> int:
         print(f"  [phase {phase} done at {time.perf_counter() - t_start:.1f} s]")
 
     only16 = sys.argv[1:] == ["--phase16"]        # the build and phase 16 alone
+    only17 = sys.argv[1:] == ["--phase17"]        # the build and phase 17 alone
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1765,6 +2284,10 @@ def main() -> int:
     if only16:
         large_worlds(dev)
         lap(16)
+        return 0
+    if only17:
+        hooks_and_mutations(dev)
+        lap(17)
         return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
@@ -2082,6 +2605,11 @@ def main() -> int:
     err_k1, err_k2 = max(err_k1, err_l1), max(err_k2, err_l2)
     err_sw = {k: max(v, err_lsw) for k, v in err_sw.items()}
     lap(16)
+    # ---- 17. the PreSolve hook and between-step mutations
+    paths17, err_h1, err_h2, err_j = hooks_and_mutations(dev)
+    err_k1, err_k2 = max(err_k1, err_h1), max(err_k2, err_h2)
+    err_sw = {k: max(v, err_j[k]) for k, v in err_sw.items()}
+    lap(17)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
@@ -2090,6 +2618,7 @@ def main() -> int:
              "256 x car x 120": launches_car}
     for name, (_, _, n_steps) in LARGE.items():
         paths[f"{large_label(name)} x {n_steps}"] = launches_large[name]
+    paths.update(paths17)
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),

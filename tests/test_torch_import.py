@@ -12,7 +12,9 @@ _MODULES = ("box2d_mt_tpu_torch", "box2d_mt_tpu_torch.world",
             "box2d_mt_tpu_torch.parallel.rollout",
             "box2d_mt_tpu_torch.ops.solve_middle",
             "box2d_mt_tpu_torch.ops.distance", "box2d_mt_tpu_torch.ops.toi",
-            "box2d_mt_tpu_torch.cuda_build")
+            "box2d_mt_tpu_torch.cuda_build", "box2d_mt_tpu_torch.mutate",
+            "box2d_mt_tpu_torch.rope", "box2d_mt_tpu_torch.diagnostics",
+            "box2d_mt_tpu_torch.draw", "box2d_mt_tpu_torch.ops.raycast")
 
 
 def test_port_never_imports_jax():
@@ -25,3 +27,18 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_exports_the_jax_api():
+    """Every name of the JAX package's __all__ (read from its source, so
+    that this test imports no JAX), plus PreSolveView, diagnostics and
+    draw, is an attribute of the port's package."""
+    import ast
+    import box2d_mt_tpu_torch as port
+    tree = ast.parse((ROOT / "box2d_mt_tpu" / "__init__.py").read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    wanted = set(names) | {"PreSolveView", "diagnostics", "draw"}
+    assert not wanted - set(port.__all__)
+    assert all(hasattr(port, name) for name in wanted)

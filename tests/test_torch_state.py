@@ -71,7 +71,8 @@ _ZOO = ["falling_circle", "vertical_stack", "distance_pendulum", "dominos", "web
         "collision_filtering", "pinball", "theo_jansen", "heavy_on_light_two",
         "mobile_balanced", "edge_shapes", "poly_shapes", "character_collision",
         "chain_problem", "edge_test", "collision_processing", "sleep_collide_perf",
-        "basic_slider_crank", "sensor_drop"]
+        "basic_slider_crank", "sensor_drop", "breakable", "conveyor_belt",
+        "one_sided_platform", "shape_editing", "skier"]
 
 
 @pytest.mark.parametrize("scene", _ZOO)

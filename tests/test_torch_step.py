@@ -150,6 +150,13 @@ def test_continuous_runs_and_unported_features_raise():
                                   np.asarray(getattr(ref, f.name))), f"{kind}.{f.name}"
     with pytest.raises(ValueError, match="unknown"):
         wb.create_joint_raw("hinge", body_a=0, body_b=1)
-    with pytest.raises(NotImplementedError, match="hooks"):
-        tworld.step_batched(st, DT, continuous=False,
+    # the hooks are ported: a refresh consults the filter, whose answer
+    # must be a bool tensor
+    dirty = dataclasses.replace(st, pairs_dirty=torch.ones_like(st.pairs_dirty))
+    with pytest.raises(ValueError, match="filter_fn"):
+        tworld.step_batched(dirty, DT, continuous=False,
                             filter_fn=lambda s, i, j: True)
+    out, _ = tworld.step_batched(dirty, DT, continuous=False,
+                                 filter_fn=lambda s, i, j: i >= 0)
+    assert torch.equal(out.contacts.f_a, tworld.step_batched(dirty, DT, continuous=False)[0]
+                       .contacts.f_a)
