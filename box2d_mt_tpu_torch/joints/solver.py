@@ -18,9 +18,10 @@ Limit states (e_inactiveLimit/e_atLower/e_atUpper/e_equalLimits,
 b2Joint.h:77-84) persist across steps in the joint block and gate impulse
 resets at init, matching the reference's hysteresis.
 
-The color passes loop over the colors in use (one host read in
-`init_joints`) where the JAX package runs a masked loop over `max_colors`:
-a pass of an unused color changes nothing.
+The color passes loop over the colors in use, and each type's pass runs
+only for the colors its joints use (one host read in `init_joints`),
+where the JAX package runs every type's masked pass for each of
+`max_colors` colors: a pass that masks out every lane changes nothing.
 """
 
 import dataclasses
@@ -1437,10 +1438,12 @@ _STORED = {"revolute": ("impulse", "motor_impulse", "limit_state"),
 
 class JointData(NamedTuple):
     """Per-step joint data: {name: (block, data)} of the colored types in
-    solve order, the number of joint colors in use over the batch, and
-    the gear's (block, data) or None."""
+    solve order, the number of joint colors in use over the batch, {name:
+    colors its joints use over the batch} (the type's largest color + 1),
+    and the gear's (block, data) or None."""
     blocks: dict
     n_colors: int
+    used: dict
     gear: tuple = None
 
 
@@ -1453,7 +1456,7 @@ def init_joints(joints, bodies, awake, v, w, dt, dt_ratio, warm_starting,
     from . import blocks as joint_blocks
     syncs = syncs or HostSyncs()
     bl = [(n, b) for n, b in joint_blocks(joints) if n != "gear"]
-    data, state, n_colors, gear = {}, {}, 0, None
+    data, state, n_colors, gear, used = {}, {}, 0, None, {}
     if bl:
         ba = torch.cat([b.body_a for _, b in bl], 1).clamp_min(0).long()
         bb = torch.cat([b.body_b for _, b in bl], 1).clamp_min(0).long()
@@ -1461,9 +1464,11 @@ def init_joints(joints, bodies, awake, v, w, dt, dt_ratio, warm_starting,
         dyn = bodies.is_dynamic
         col, _ = coloring.color_constraints(ba, bb, take(dyn, ba), take(dyn, bb),
                                             act, nb, max_colors, syncs=syncs)
-        n_colors = syncs.value(col.max()) + 1
         sizes = [b.body_a.shape[1] for _, b in bl]
         colors = dict(zip((n for n, _ in bl), torch.split(col, sizes, 1)))
+        tops = syncs.values(torch.stack([c.max() for c in colors.values()]))
+        used = {n: top + 1 for n, top in zip(colors, tops)}
+        n_colors = max(used.values())
         for name in _SOLVE_ORDER:
             if name not in colors:
                 continue
@@ -1476,7 +1481,7 @@ def init_joints(joints, bodies, awake, v, w, dt, dt_ratio, warm_starting,
     if joints.gear.body_a.shape[-1] > 0:
         d, state["gear"] = _gear_init(joints.gear, bodies, awake, warm_starting)
         gear = (joints.gear, d)
-    return JointData(data, n_colors, gear), state
+    return JointData(data, n_colors, used, gear), state
 
 
 def warm_start_joints(jdata: JointData, jstate, v, w):
@@ -1492,6 +1497,8 @@ def solve_joint_velocity(jdata: JointData, jstate, v, w, dt):
     gears in slot order."""
     for ci in range(jdata.n_colors):
         for name, (blk, d) in jdata.blocks.items():
+            if ci >= jdata.used[name]:
+                continue
             st, v, w = _VELOCITY[name](blk, d, jstate[name], v, w, dt,
                                        d.com.color == ci)
             jstate = {**jstate, name: st}
@@ -1509,6 +1516,8 @@ def solve_joint_position(jdata: JointData, jstate, c, a):
     ok_body = torch.ones((nw, nb + 1), dtype=torch.bool, device=a.device)
     for ci in range(jdata.n_colors):
         for name, (blk, d) in jdata.blocks.items():
+            if ci >= jdata.used[name]:
+                continue
             on = d.com.color == ci
             c, a, ok = _POSITION[name](blk, d, jstate[name], c, a, on)
             bad = ~ok & on

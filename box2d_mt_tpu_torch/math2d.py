@@ -75,15 +75,29 @@ def take(x, idx):
     return x[w, idx]
 
 
+def add_at(flat, rows, values):
+    """flat (R,) plus values (M,) at rows (M,), in place: the values of one
+    row are added one after another, in the order they stand in `rows`,
+    so every run and every world gets the same sums on every device. No
+    one PyTorch call does that on both: on a CPU `index_add_` adds in that
+    order, while `index_put_` with accumulate adds float tensors of 32768
+    elements and more from several threads at once; on a card
+    `index_put_` with accumulate sorts the rows stably and adds each run in
+    order, while `index_add_` and `scatter_add_` add in no fixed order."""
+    if flat.device.type == "cpu":
+        return flat.index_add_(0, rows, values)
+    return flat.index_put_((rows,), values, accumulate=True)
+
+
 def add_rows(target, idx, delta):
     """target (W, N, K) + the sum of delta (W, M, K) rows at idx (W, M).
-    The deltas are summed first (into zeros, in lane order: index_put_
-    with accumulate is sequential on a CPU and sort-based, so ordered and
-    deterministic, on a card) and then added, as the JAX package's
-    scatter-add does; a row hit by one lane gets exactly its delta."""
+    The deltas are summed first (into zeros, in lane order: `add_at`) and
+    then added, as the JAX package's scatter-add does; a row hit by one
+    lane gets exactly its delta."""
     nw, n = target.shape[:2]
-    rows = (idx.long() + n * torch.arange(nw, device=idx.device)[:, None]).reshape(-1)
-    acc = torch.zeros((nw * n,) + target.shape[2:], dtype=target.dtype,
-                      device=target.device)
-    acc.index_put_((rows,), delta.reshape((-1,) + target.shape[2:]), accumulate=True)
+    k = target[0, 0].numel()
+    rows = (idx.long() + n * torch.arange(nw, device=idx.device)[:, None])[..., None]
+    rows = (rows * k + torch.arange(k, device=idx.device)).reshape(-1)
+    acc = torch.zeros(target.numel(), dtype=target.dtype, device=target.device)
+    add_at(acc, rows, delta.reshape(-1))
     return target + acc.reshape(target.shape)

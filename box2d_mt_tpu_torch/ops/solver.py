@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from .. import settings
-from ..math2d import take
+from ..math2d import add_at, take
 
 EPS = 1.1920929e-7
 _TINY = 1.1754943508222875e-38
@@ -312,9 +312,12 @@ def warm_start(cc: ContactConstraints, ni, ti, bst):
                       cc.inv_mass_b * p_sum[..., 1],
                       cc.inv_i_b * ang_b], 1)
     idx = torch.cat([cc.body_a, cc.body_b], 1).long()
-    out = bst.clone()
-    out.scatter_add_(2, idx[:, None, :].expand(-1, 3, -1),
-                     torch.cat([da, db], 2))
+    nw, _, n = bst.shape
+    rows = torch.arange(nw * 3, device=idx.device).reshape(nw, 3, 1) * n + idx[:, None, :]
+    # a body's deltas in lane order on every device (`add_at`), so two
+    # runs, and two equal worlds, agree to the bit
+    out = bst.clone(memory_format=torch.contiguous_format)
+    add_at(out.view(-1), rows.reshape(-1), torch.cat([da, db], 2).reshape(-1))
     return out
 
 

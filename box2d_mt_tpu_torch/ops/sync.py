@@ -29,3 +29,8 @@ class HostSyncs:
         """Several scalar predicates in a single transfer."""
         self.count += 1
         return [bool(x) for x in torch.stack([t.reshape(()) for t in ts]).tolist()]
+
+    def values(self, t: torch.Tensor) -> list:
+        """The integers of a 1-D tensor, in a single transfer."""
+        self.count += 1
+        return [int(x) for x in t.tolist()]

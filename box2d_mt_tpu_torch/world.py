@@ -1186,7 +1186,7 @@ class _MiniIsland:
     def prepare_velocity(self, pos, vA, wA, vB, wB):
         """Velocity-constraint data at the position-solved TOI-body pose,
         with real masses on both endpoints."""
-        cA, aA, cB, aB = self._poses(self._own(torch.stack(pos, -1)))
+        cA, aA, cB, aB = self._poses(self._own(take(torch.stack(pos, -1), self.nparent)))
         tv0 = self._own(take(torch.stack([vA[..., 0], vA[..., 1], wA, vB[..., 0],
                                           vB[..., 1], wB], -1), self.nparent))
         a2 = self.n_toi_a[..., None]

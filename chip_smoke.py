@@ -109,8 +109,9 @@ on any failure:
      with two motorized flippers: K3-K6, and K2 against the chain's
      edges) as in phase 10, K3-K6 held against their plain versions on
      its busiest step, with its solved lanes by manifold type. Then the
-     zoo goldens on the card: nineteen scenes (circle, chain, sensor and
-     joint worlds; see ZOO_GOLDENS) as one padded batch, each held over
+     zoo goldens on the card: twenty-six scenes (circle, chain, sensor and
+     joint worlds, and phase 18's joint-free goldens; see ZOO_GOLDENS) as
+     one padded batch, each held over
      the steps its JAX test reads at that test's bounds, the sensor's
      begin and end steps equal to the trace's, and falling_circle alone at
      the 6 and 2 iterations of its trace;
@@ -174,12 +175,34 @@ on any failure:
      to the CPU result (1e-5; the rope's 60th step to 1e-4) and the
      shape cast and the rope within the JAX package's bounds of their C++
      traces. `python3 chip_smoke.py --phase17` runs the build and this
-     phase alone.
+     phase alone;
+ 18. the joint goldens no earlier phase held, each over all 240 steps of
+     its trace at the JAX package's bounds (JOINT_GOLDENS):
+     collision_filtering, dominos, pinball and tumbler(40) as one batch
+     through K3-K6 and K2 at max_colors=32 (the tumbler's overflow color
+     in use after step 59, none before), and theo_jansen as a batch of its
+     own; both at 4 lanes a scene, with every kernel of the batch's path
+     launched, counted from 0 before its rolls; add_pair(50, 7) on the
+     card against the port's roll on the host's CPU through step 15 (c, a
+     to 2e-5, v, w to 1e-4, awake and pairs equal). The joint-free goldens
+     no earlier phase held are phase 14's. `--phase18` runs the build and
+     this phase alone. Phases 18 and 19 run side by side as the tasks of
+     one pool of worker processes on the card (PARALLEL_WORKERS; the rolls
+     are bound by the host), each task printing its own time;
+ 19. bit reproducibility (tools/consistency_torch.py): every scene of its
+     list at 4 lanes, and 64 x pyramid(10), 64 x sphere_stack(10), 16 x
+     car and 4 x many_bodies(1200), rolled twice for 120 steps as padded
+     batches (consistency_torch.batch_groups): every State leaf equal
+     between the two rolls and every lane equal to the first of its
+     scene; the mutation sequence replayed twice. Phase 18's two golden
+     batches are this check of their scenes: their first 120 steps rolled
+     again. Any difference fails the run. `--phase19` runs the build and
+     this phase alone (`--phase18 --phase19` both).
 
 The last lines are the card line, the kernels' JSON record (launches
 counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
-256 x car, phase 16's three rolls and phase 17's three, by path and
-summed) and
+256 x car, phase 16's three rolls, phase 17's three, phase 18's two
+golden batches and phase 19's rolls, by path and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -270,15 +293,29 @@ ZOO_GOLDENS = {
                                         "sleep_collide_perf_300", 64, 300, 0.05, None),
     # begin and end steps equal the trace's; the ball's final height
     "sensor_drop": ("sensor_drop", (), "sensor_180", None, 180, 5e-3, None),
+    # the joint-free goldens of phase 18 (tests/test_golden_zoo.py:143-189,
+    # :222-227, :262-268, tests/test_step.py:72-76)
+    "character_collision": ("character_collision", (), "character_collision_240", 11, 240,
+                            0.1, None),
+    "compound_shapes(4)": ("compound_shapes", (4,), "compound_shapes_240", 13, 60, 0.2, None),
+    "confined(4, 3)": ("confined", (4, 3), "confined_240", 13, 240, 0.01, None),
+    "heavy_on_light_two": ("heavy_on_light_two", (), "heavy_on_light_two_240", 4, 240, 0.15,
+                           0.08),
+    "poly_shapes(8)": ("poly_shapes", (8,), "poly_shapes_240", 9, 240, 1.5, None),
+    "pyramid(5)": ("pyramid", (5,), "pyramid_5_240", 16, 240, 0.05, 0.02),
+    "edge_shapes(8)": ("edge_shapes", (8,), "edge_shapes_240", 9, 120, 0.1, None),
 }
+# a bound on the first steps of a zoo golden's window: (steps, bound)
+ZOO_EARLY = {"poly_shapes(8)": (60, 0.3)}
 ZOO_CAPACITY = dict(body_capacity=64, fixture_capacity=128, contact_capacity=512,
                     joint_capacity={"revolute": 15, "distance": 8, "prismatic": 1,
                                     "weld": 11})
-# the goldens of the mouse, friction, rope, motor, wheel, pulley and gear
-# joints' scenes held on the card (phase 15): (golden file, bodies in the
-# trace, bound on the worst error over the 240 steps, on steps 0-129 or
-# None, on the last step or None) at the JAX package's bounds
-# (tests/test_step.py:138-177, tests/test_golden_zoo.py:159-163, :212-215)
+# the goldens of the joint scenes held on the card (phases 15 and 18):
+# (golden file, bodies in the trace, bound on the worst error over the 240
+# steps or None, (steps, bound) on the first steps or None, bound on the
+# last step or None) at the JAX package's bounds (tests/test_step.py:138-177,
+# tests/test_golden_zoo.py:159-163, :193-215, :228-235, :247-253). No
+# color overflow is allowed in the steps a bound reads
 JOINT_GOLDENS = {
     "friction_top_down": ("friction_240", 2, 5e-3, None, None),
     "apply_force": ("apply_force_240", 12, 1e-4, None, None),
@@ -286,8 +323,12 @@ JOINT_GOLDENS = {
     "motor_drive": ("motor_240", 2, 5e-3, None, None),
     "wheel_car": ("wheel_240", 3, 5e-2, None, None),
     "car": ("car_240", 30, 0.15, None, None),
-    "gear_train": ("gear_240", 4, 0.03, 1e-4, 1e-4),
+    "gear_train": ("gear_240", 4, 0.03, (130, 1e-4), 1e-4),
     "pulley_pair": ("pulley_240", 3, 1e-2, None, None),
+    "collision_filtering": ("collision_filtering_240", 8, 0.2, None, 0.05),
+    "dominos": ("dominos_240", 23, 0.4, None, None),
+    "pinball": ("pinball_240", 4, 0.05, None, None),
+    "tumbler": ("tumbler_240", 42, None, (60, 0.05), None),
 }
 # phase 15's batch of the joint types, after the mouse world: every golden
 # scene but car, whose golden is world 0 of the car path. One batch costs
@@ -1279,6 +1320,10 @@ def zoo_goldens(dev):
             errs = per_body.max(1)
             ok = errs.max() < limit and (last is None or errs[-1] < last)
             extra = ""
+            if name in ZOO_EARLY:
+                n_early, early = ZOO_EARLY[name]
+                ok = ok and errs[:n_early].max() < early
+                extra = f", steps 0-{n_early - 1} {errs[:n_early].max():.3g} (bound {early})"
             if name.startswith("sleep_collide_perf"):
                 ok = ok and asleep and ref_asleep
                 extra = f", pyramids asleep {asleep} (C++ {ref_asleep})"
@@ -1457,30 +1502,34 @@ def joint_types(dev, copies=4, compare_steps=20):
     return held_to_goldens(TYPE_BATCH, kept, el_ker)
 
 
-def held_to_goldens(names, kept, elapsed):
+def held_to_goldens(names, kept, elapsed, phase=15):
     """World w of the roll `kept` (per step: poses (W, N, 3) and color
     overflow (W,)) against the C++ trace of JOINT_GOLDENS[names[w]];
     raises when a bound is missed. Returns the worst errors."""
     import numpy as np
     import torch
     got = torch.stack([p for p, _ in kept]).cpu().numpy()         # (step, world, body, 3)
-    overflow = torch.stack([o for _, o in kept]).max(0).values.tolist()
+    overflow = torch.stack([o for _, o in kept]).cpu().numpy()      # (step, world)
     worst = {}
     for w, name in enumerate(names):
         trace, n_bodies, limit, early, last = JOINT_GOLDENS[name]
         ref = np.asarray([[rb[:3] for rb in json.loads(line)["bodies"]]
                           for line in open(ROOT / f"tests/golden/{trace}.jsonl")])
         errs = np.abs(got[:, w, n_bodies - 1::-1] - ref[:240]).max((1, 2))
-        worst[name] = float(errs.max())
-        ok = (errs.max() < limit and (early is None or errs[:130].max() < early)
-              and (last is None or errs[-1] < last) and overflow[w] == 0)
-        print(f"phase 15 golden {name} ({len(names)} in its batch, {elapsed:.3f} s), steps "
-              f"0-239: worst error {errs.max():.3g} (bound {limit})"
-              + ("" if early is None else f", steps 0-129 {errs[:130].max():.3g} "
-                                          f"(bound {early})")
+        read = 240 if limit is not None or last is not None else early[0]
+        worst[name] = float(errs[:read].max())
+        ok = ((limit is None or errs.max() < limit)
+              and (early is None or errs[:early[0]].max() < early[1])
+              and (last is None or errs[-1] < last) and overflow[:read, w].sum() == 0)
+        print(f"phase {phase} golden {name} ({len(names)} in its batch, {elapsed:.3f} s)"
+              + ("" if limit is None else f", steps 0-239: worst error {errs.max():.3g} "
+                                          f"(bound {limit})")
+              + ("" if early is None else f", steps 0-{early[0] - 1} "
+                                          f"{errs[:early[0]].max():.3g} (bound {early[1]})")
               + f", last step {errs[-1]:.3g}"
               + ("" if last is None else f" (bound {last})")
-              + f", color overflow {overflow[w]}")
+              + f", color overflow {int(overflow[:read, w].sum())} in steps 0-{read - 1}, "
+              f"{int(overflow[:, w].sum())} in all")
         if not ok:
             raise AssertionError(f"{name}: the C++ golden is not met")
     return worst
@@ -2246,6 +2295,311 @@ def hooks_and_mutations(dev):
     return paths, err_k1, err_k2, err_sw
 
 
+# phase 18: the joint goldens no earlier phase held (JOINT_GOLDENS) and
+# theo_jansen, each rolled through the kernels for the 240 steps of its
+# trace as a padded batch of CHECK_LANES lanes a scene, and its first
+# CHECK_STEPS steps rolled again (tools/consistency_torch.run_batch): the
+# same rolls are phase 19's check of these scenes. The four JOINT_GOLDENS
+# scenes share a batch at max_colors=32, the most either package takes
+# (the tumbler's JAX test asks for 48; at 32 its pile needs the overflow
+# color late in the roll, none in steps 0-59, which its bound reads);
+# theo_jansen rolls in a batch of its own at the default budget. The
+# joint-free goldens no earlier phase held are rows of ZOO_GOLDENS
+JOINT_GOLDEN_BATCH = (("collision_filtering", ()), ("dominos", ()), ("pinball", ()),
+                      ("tumbler", (40,)))
+# theo_jansen's trace holds 55 bodies; its bounds (tests/test_golden_zoo.py:
+# 289-317): the chassis (slot 41) and the wheel (42) within 0.15 in x and
+# y over the 240 steps, the twelve leg bodies (43-54) over steps 0-29
+THEO_BODIES = 55
+# phases 18-19: lanes a scene, and the steps both rolls share
+CHECK_LANES, CHECK_STEPS = 4, 120
+# phase 19: the heavier worlds beside the consistency list (name, scene,
+# its arguments, worlds of it in one batch)
+CONSISTENCY_HEAVY = (("64 x pyramid(10)", "pyramid", (10,), 64),
+                     ("64 x sphere_stack(10)", "sphere_stack", (10,), 64),
+                     ("16 x car", "car", (), 16),
+                     ("4 x many_bodies(1200)", "many_bodies", (1200,), 4))
+COUNTED = ("solve_middle", "toi") + SANDWICH_NAMES
+
+
+def consistency_tool():
+    sys.path.insert(0, str(ROOT / "tools"))
+    import consistency_torch
+    return consistency_torch
+
+
+def zero_launches():
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    for f in (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH:
+        f.launches = 0
+
+
+def read_launches():
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    return dict(zip(COUNTED, (f.launches for f in
+                              (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH)))
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def golden_rolls(scenes_args, dev, **kw):
+    """18: the scenes ((name, arguments) each) as one batch of CHECK_LANES
+    lanes a scene, 240 steps through the kernels, and the first
+    CHECK_STEPS again (consistency_torch.run_batch). Returns the
+    consistency rows, per step the poses (S, N, 3) and the color overflow
+    (S,) of each scene's first lane, the launches of both rolls, counted
+    from 0 before them, and their seconds."""
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    entries = [(name, lambda device, _f=getattr(scenes, name), _a=args, **cap:
+                _f(*_a, device=device, **cap), CHECK_LANES) for name, args in scenes_args]
+    first = torch.arange(len(entries), device=dev) * CHECK_LANES
+    kept = []
+
+    def record(st, ev):
+        kept.append((torch.cat([st.bodies.xf_p, st.bodies.a[..., None]], -1)[first],
+                     ev.color_overflow[first]))
+
+    sync(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = consistency_tool().run_batch(entries, CHECK_STEPS, dev, on_step=record,
+                                        longer=240 - CHECK_STEPS, **kw)
+    sync(dev)
+    return rows, kept, read_launches(), time.perf_counter() - t0
+
+
+def joint_goldens(dev):
+    """18: the scenes of JOINT_GOLDEN_BATCH held to JOINT_GOLDENS, the
+    tumbler's overflow color in use after step 59. Returns the
+    consistency rows and the launches."""
+    import torch
+    names = [name for name, _ in JOINT_GOLDEN_BATCH]
+    rows, kept, launches, elapsed = golden_rolls(JOINT_GOLDEN_BATCH, dev, max_colors=32)
+    print(f"phase 18 joint goldens: {len(names)} scenes x {CHECK_LANES} lanes in one batch, "
+          f"240 steps and the first {CHECK_STEPS} again, {elapsed:.3f} s, launches={launches}")
+    held_to_goldens(names, kept, elapsed, phase=18)
+    late = int(torch.stack([o for _, o in kept])[60:, names.index("tumbler")].sum())
+    print(f"phase 18 tumbler(40) at 32 colors: the overflow color in use on {late} steps "
+          f"after step 59")
+    if late == 0:
+        raise AssertionError("tumbler(40) at 32 colors: the overflow color is never used")
+    return rows, launches
+
+
+def theo_jansen_errors(poses):
+    """theo_jansen's measure of poses (step, body slot, 3): the worst x or
+    y error of the chassis and the wheel over the 240 steps, and of the
+    twelve leg bodies over steps 0-29."""
+    import numpy as np
+    ref = np.asarray([[rb[:2] for rb in json.loads(line)["bodies"]]
+                      for line in open(ROOT / "tests/golden/theo_jansen_240.jsonl")])
+    xy = np.abs(poses[:, THEO_BODIES - 1::-1, :2] - ref[:240])    # reverse creation order
+    core = xy[:, [THEO_BODIES - 1 - 41, THEO_BODIES - 1 - 42]].max()
+    legs = xy[:30, THEO_BODIES - 1 - 54:THEO_BODIES - 1 - 42].max()
+    return float(core), float(legs)
+
+
+def theo_golden(dev):
+    """18: theo_jansen held to its C++ trace (theo_jansen_errors, both
+    within 0.15) with no color overflow. Returns the consistency rows and
+    the launches."""
+    import numpy as np
+    import torch
+    rows, kept, launches, elapsed = golden_rolls((("theo_jansen", ()),), dev)
+    poses = torch.stack([p[0] for p, _ in kept]).cpu().numpy()
+    overflow = int(torch.stack([o[0] for _, o in kept]).sum())
+    core, legs = theo_jansen_errors(poses)
+    print(f"phase 18 golden theo_jansen ({CHECK_LANES} lanes, 240 steps and the first "
+          f"{CHECK_STEPS} again, {elapsed:.3f} s, launches={launches}): chassis and wheel "
+          f"{core:.4g} over steps 0-239 (bound 0.15), legs {legs:.4g} over steps 0-29 (bound "
+          f"0.15); color overflow {overflow}")
+    if not (core < 0.15 and legs < 0.15 and overflow == 0 and np.isfinite(poses).all()):
+        raise AssertionError("theo_jansen: the C++ golden is not met")
+    return rows, launches
+
+
+def add_pair_vs_cpu(dev, n_steps=16):
+    """18: add_pair(50, 7) through the kernels against the port's roll on
+    the host's CPU (tier-1 holds the CPU roll to the JAX package's), step
+    by step through step 15, the last before the bullet's impact: c and a
+    to 2e-5, v and w to 1e-4, awake and the pair table equal. Four more
+    steps on the card give the C++ golden's error over steps 0-19 (the
+    JAX test's first bound, 1e-3, which neither package meets)."""
+    import numpy as np
+    import torch
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.world import possible_kinds, step_batched
+    card = scenes.add_pair(50, 7, device=dev)
+    host = scenes.add_pair(50, 7, device="cpu")
+    kinds = possible_kinds(host)
+    ref = [json.loads(line) for line in open(ROOT / "tests/golden/add_pair_120.jsonl")]
+    worst, errs = {}, []
+    t0 = time.perf_counter()
+    for i in range(20):
+        card, _ = checked_step(card, DT, kinds=kinds)
+        b = card.bodies
+        kept = [(torch.cat([b.xf_p, b.a[..., None]], -1).cpu().numpy(),
+                 b.body_type.cpu().numpy())]
+        errs.append(golden_errors(kept, [ref[i:i + 1]], ["add_pair"])["add_pair"][0])
+        if i >= n_steps:
+            continue
+        with torch.inference_mode():
+            host, _ = step_batched(host, DT, kinds=kinds)
+        for k in ("c", "a", "v", "w"):
+            worst[k] = max(worst.get(k, 0.0), float((getattr(b, k).cpu()
+                                                     - getattr(host.bodies, k)).abs().max()))
+        same = (torch.equal(b.awake.cpu(), host.bodies.awake)
+                and torch.equal(card.contacts.f_a.cpu(), host.contacts.f_a)
+                and torch.equal(card.contacts.f_b.cpu(), host.contacts.f_b))
+        if not same:
+            raise AssertionError(f"add_pair: awake or the pair table differs at step {i}")
+    print(f"phase 18 add_pair(50, 7), the card against the CPU over steps 0-{n_steps - 1}: "
+          + " ".join(f"max|d {k}|={v:.3g}" for k, v in worst.items())
+          + f", awake and pairs equal; C++ golden error over steps 0-19 "
+          f"{max(errs):.4g} (JAX bound 1e-3, met by neither package) "
+          f"({time.perf_counter() - t0:.3f} s)")
+    if (worst["c"] > 2e-5 or worst["a"] > 2e-5 or worst["v"] > 1e-4 or worst["w"] > 1e-4
+            or any(e is None for e in errs) or not np.isfinite(errs).all()):
+        raise AssertionError(f"add_pair: the card and the CPU disagree: {worst}")
+
+
+# phases 18 and 19 run side by side in worker processes on the one card:
+# their rolls are bound by the host (a joint world's eager passes and a
+# bullet world's TOI sub-steps launch thousands of small kernels a step),
+# so each worker takes a CPU core
+PARALLEL_WORKERS = 6
+
+
+def consistency_entries(dev):
+    """Phase 19's (name, build, worlds) entries: tools/consistency_torch.py's
+    list at CHECK_LANES lanes but the scenes phase 18's rolls check, then
+    CONSISTENCY_HEAVY."""
+    from box2d_mt_tpu_torch.models import scenes
+    held = {name for name, _ in JOINT_GOLDEN_BATCH} | {"theo_jansen"}
+    entries = [(name, build, CHECK_LANES)
+               for name, build, _ in consistency_tool().scene_list(CHECK_STEPS)
+               if name not in held]
+    for label, scene, args, n in CONSISTENCY_HEAVY:
+        build = getattr(scenes, scene)
+        entries.append((label, lambda device, _b=build, _a=args, **cap: _b(*_a, device=device,
+                                                                            **cap), n))
+    return entries
+
+
+def check_task(task, dev):
+    """One task of phases 18-19 in a worker process: ("joint goldens"),
+    ("theo_jansen"), ("add_pair"), ("mutation") or ("batch", entry names)
+    of phase 19. Returns (task, consistency rows, launches or None, printed
+    text, seconds); a failure raises."""
+    import contextlib
+    import io
+    import torch
+    from box2d_mt_tpu_torch import cuda_build
+    torch.set_num_threads(1)
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        for name in SOURCES:
+            cuda_build.build(name)                    # built by phase 1: loads it
+    ct = consistency_tool()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    rows, launches = [], None
+    with contextlib.redirect_stdout(text):
+        if task[0] == "joint goldens":
+            rows, launches = joint_goldens(dev)
+        elif task[0] == "theo_jansen":
+            rows, launches = theo_golden(dev)
+        elif task[0] == "add_pair":
+            add_pair_vs_cpu(dev)
+        elif task[0] == "mutation":
+            rows = [ct.run_mutation_sequence(lanes=CHECK_LANES, device=dev)]
+        else:
+            entries = {e[0]: e for e in consistency_entries(dev)}
+            zero_launches()
+            rows = ct.run_batch([entries[n] for n in task[1]], CHECK_STEPS, dev)
+            sync(dev)
+            launches = read_launches()
+            print(f"phase 19 {', '.join(task[1])} ({sum(r['lanes'] for r in rows)} worlds in "
+                  f"one batch), 2 x {CHECK_STEPS} steps: {time.perf_counter() - t0:.3f} s, "
+                  f"{rows[0]['worlds_steps_per_s']} worlds*steps/s")
+    return task, rows, launches, text.getvalue(), time.perf_counter() - t0
+
+
+def checks_in_parallel(dev, phases=("18", "19")):
+    """Phases 18 (joint_goldens, theo_golden, add_pair_vs_cpu) and 19
+    (tools/consistency_torch.py on the card: consistency_entries in the
+    padded batches of `batch_groups`, and the mutation sequence replayed
+    twice) as the tasks of one pool of PARALLEL_WORKERS processes, phase
+    18's first, then phase 19's batches, the most scenes first. Phase 19
+    reads phase 18's rolls too: every scene's rows equal run to run and
+    lane to lane. Raises on any failure. Returns the launches of the
+    phases' paths, each counted from 0 before its rolls in its worker."""
+    import concurrent.futures as cf
+    import multiprocessing
+    tasks = []
+    if "18" in phases:
+        tasks += [("joint goldens",), ("theo_jansen",), ("add_pair",)]
+    if "19" in phases:
+        groups = consistency_tool().batch_groups(consistency_entries(dev), dev)
+        tasks += [("batch", tuple(e[0] for e in g))
+                  for g in sorted(groups, key=len, reverse=True)]
+        tasks.append(("mutation",))
+    t0 = time.perf_counter()
+    done = []
+    workers = min(PARALLEL_WORKERS, len(tasks))
+    with cf.ProcessPoolExecutor(workers,
+                                mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(check_task, t, str(dev)) for t in tasks]
+        try:
+            for f in cf.as_completed(futures):
+                done.append(f.result())
+        except BaseException:
+            for f in futures:
+                f.cancel()
+            raise
+    wall = time.perf_counter() - t0
+    done.sort(key=lambda r: tasks.index(r[0]))
+    paths, rows, busy = {}, [], {"18": 0.0, "19": 0.0}
+    list_path = f"phase 19 consistency list x {CHECK_STEPS} (two rolls)"
+    for task, task_rows, launches, text, seconds in done:
+        print(text, end="")
+        rows += task_rows
+        phase = "19" if task[0] in ("batch", "mutation") else "18"
+        busy[phase] += seconds
+        if task[0] in ("joint goldens", "theo_jansen"):
+            label = f"phase 18 {task[0]} x 240 (and {CHECK_STEPS} again)"
+            paths[label] = launches
+            want = ("toi",) + SANDWICH_NAMES if task[0] == "joint goldens" else SANDWICH_NAMES
+            if min(launches[k] for k in want) <= 0:
+                raise AssertionError(f"{label}: a kernel of its path was not launched: "
+                                     f"{launches}")
+        elif task[0] == "batch":
+            total = paths.setdefault(list_path, dict.fromkeys(COUNTED, 0))
+            for k, v in launches.items():
+                total[k] += v
+    failed = [r["scene"] + "".join(f" {k}" for k in ("rerun_bitexact", "lanes_bitexact",
+                                                     "no_nan") if not r[k])
+              for r in rows if not r["passed"]]
+    print(f"phase{'s' * (len(phases) > 1)} {'-'.join(phases)} in {workers} worker processes: "
+          f"{wall:.1f} s wall, "
+          + ", ".join(f"phase {p} {busy[p]:.1f} s of worker time" for p in phases))
+    print(f"bit reproducibility on the card ({CHECK_LANES} lanes, {CHECK_STEPS} steps rolled "
+          f"twice): {len(rows)} scenes, failed {failed}"
+          + (f", phase 19's launches={paths[list_path]}" if "19" in phases else ""))
+    if failed:
+        raise AssertionError(f"not bit-reproducible on the card: {failed}")
+    if "19" in phases and min(paths[list_path].values()) <= 0:
+        raise AssertionError(f"phase 19: a kernel was not launched: {paths[list_path]}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2269,6 +2623,8 @@ def main() -> int:
 
     only16 = sys.argv[1:] == ["--phase16"]        # the build and phase 16 alone
     only17 = sys.argv[1:] == ["--phase17"]        # the build and phase 17 alone
+    # the build and phase 18 or 19 alone, or both
+    only1819 = [a[-2:] for a in sys.argv[1:] if a in ("--phase18", "--phase19")]
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2288,6 +2644,10 @@ def main() -> int:
     if only17:
         hooks_and_mutations(dev)
         lap(17)
+        return 0
+    if only1819:
+        checks_in_parallel(dev, phases=tuple(sorted(only1819)))
+        lap("-".join(sorted(only1819)))
         return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
@@ -2610,6 +2970,9 @@ def main() -> int:
     err_k1, err_k2 = max(err_k1, err_h1), max(err_k2, err_h2)
     err_sw = {k: max(v, err_j[k]) for k, v in err_sw.items()}
     lap(17)
+    # ---- 18-19. the goldens no earlier phase held, and bit reproducibility
+    paths1819 = checks_in_parallel(dev)
+    lap("18-19")
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
@@ -2619,6 +2982,7 @@ def main() -> int:
     for name, (_, _, n_steps) in LARGE.items():
         paths[f"{large_label(name)} x {n_steps}"] = launches_large[name]
     paths.update(paths17)
+    paths.update(paths1819)
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),

@@ -42,3 +42,20 @@ def test_port_exports_the_jax_api():
     wanted = set(names) | {"PreSolveView", "diagnostics", "draw"}
     assert not wanted - set(port.__all__)
     assert all(hasattr(port, name) for name in wanted)
+
+
+def test_port_tools_never_import_jax():
+    """The port's tools (the consistency harness and the testbed driver)
+    import the port and no JAX, so they run on a machine without it."""
+    code = ("import importlib, sys\n"
+            "sys.path.insert(0, 'tools')\n"
+            "ct = importlib.import_module('consistency_torch')\n"
+            "importlib.import_module('testbed_torch')\n"
+            "ct.scene_list(1)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'box2d_mt_tpu.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -243,6 +243,8 @@ def test_joint_solver_bodies_match_jax(solved):
     # joints between sleeping bodies are skipped
     assert not all(a.all() for a in jx.active.values())
     assert pt.data.n_colors == max(c.max() for c in jx.color.values()) + 1 > 2
+    # each type's passes run for the colors its own joints use
+    assert pt.data.used == {name: int(c.max()) + 1 for name, c in jx.color.items()}
 
 
 def _joint_leaves(joints):
