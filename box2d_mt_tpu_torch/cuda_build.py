@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -35,11 +36,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-@functools.cache
+_BUILD_LOCKS: dict = {}       # a lock a source
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn):
+    """Add one to the `launches` count of kernel wrapper `fn`: one lock for
+    every wrapper, so that shards stepped from several host threads count
+    every launch."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+
+
 def build(name: str) -> dict:
-    """Compile `csrc/<name>.cu` (once per process and source hash).
-    Returns {"path", "seconds", "log"}; raises with nvcc's output on
-    failure."""
+    """Compile `csrc/<name>.cu` (once per process and source hash; a second
+    thread asking for the same source waits for the first). Returns
+    {"path", "seconds", "log"}; raises with nvcc's output on failure."""
+    with _BUILD_LOCKS.setdefault(name, threading.Lock()):
+        return _build(name)
+
+
+@functools.cache
+def _build(name: str) -> dict:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"

@@ -77,7 +77,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import settings
-from ..cuda_build import load
+from ..cuda_build import count_launch, load
 from .integrate import integrate_positions
 from .solver import position_contact_math_s, velocity_contact_math_s
 
@@ -191,7 +191,7 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
           (nw, nb, nc, mc, velocity_iterations, position_iterations,
            shape.threads_per_world, int(shape.resident), shape.tile, shape.n_buffers,
            int(shape.global_planes)), dt)
-    solve_middle.launches += 1
+    count_launch(solve_middle)
     return vel_out, pos_out, aux
 
 
@@ -218,7 +218,7 @@ def _launch_pack(blob, perm, color_start):
                          device=blob.device)
     _call("pack_packed_launch", blob.device, (blob, perm, color_start, packed),
           (nw, nc, color_start.shape[-1] - 1))
-    pack_packed.launches += 1
+    count_launch(pack_packed)
     return packed
 
 
@@ -391,7 +391,7 @@ vel_iter_packed.launches = 0
 
 def _launch_vel_iter(*args):
     out = _launch_iter("vel_iter_packed_launch", VEL_ROWS, *args)
-    vel_iter_packed.launches += 1
+    count_launch(vel_iter_packed)
     return out
 
 
@@ -408,7 +408,7 @@ pos_iter_packed.launches = 0
 
 def _launch_pos_iter(*args):
     out = _launch_iter("pos_iter_packed_launch", POS_ROWS, *args)
-    pos_iter_packed.launches += 1
+    count_launch(pos_iter_packed)
     return out
 
 
@@ -430,7 +430,7 @@ def _launch_unpack(packed, perm, color_start):
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=packed.device)
     _call("unpack_packed_launch", packed.device, (packed, perm, color_start, aux),
           (nw, nc, color_start.shape[-1] - 1, *unpack_shape(nw, nc)))
-    unpack_packed.launches += 1
+    count_launch(unpack_packed)
     return aux
 
 

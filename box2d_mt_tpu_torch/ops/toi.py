@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import count_launch, load
 from . import distance
 
 SWEEP_ROWS = 8
@@ -106,7 +106,7 @@ def _launch(args):
             err = fn(*call)
     if err != 0:
         raise RuntimeError(f"time_of_impact kernel launch failed: CUDA error {err}")
-    time_of_impact_lanes.launches += 1
+    count_launch(time_of_impact_lanes)
     return state, t
 
 

@@ -506,3 +506,19 @@ def concat_worlds(states) -> State:
         map_leaves(lambda t: out.append(t) or t, st)
     it = iter(zip(*leaves))
     return map_leaves(lambda _: torch.cat(next(it)), states[0])
+
+
+def where_worlds(on: torch.Tensor, new, old):
+    """Per world, the worlds of `new` where `on` (W,) bool is set and those
+    of `old` elsewhere: two States, or two blocks of one class (Contacts,
+    ...), of one shape."""
+    def pick(a, b):
+        return torch.where(on.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    if isinstance(new, State):
+        rest = []
+        map_leaves(lambda t: rest.append(t) or t, old)
+        it = iter(rest)
+        return map_leaves(lambda t: pick(t, next(it)), new)
+    return type(new)(**{f.name: pick(getattr(new, f.name), getattr(old, f.name))
+                        for f in dataclasses.fields(new)})

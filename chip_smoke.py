@@ -197,17 +197,28 @@ on any failure:
      scene; the mutation sequence replayed twice. Phase 18's two golden
      batches are this check of their scenes: their first 120 steps rolled
      again. Any difference fails the run. `--phase19` runs the build and
-     this phase alone (`--phase18 --phase19` both).
+     this phase alone (`--phase18 --phase19` both);
+ 20. the sharded step (box2d_mt_tpu_torch/parallel/sharding.py): 512 x
+     pyramid(10) x 60 and 256 x car x 60 sharded over [cuda:0, cuda:0],
+     two host threads with a CUDA stream each on the one card, and over
+     every card where more are visible, each world held bit for bit to
+     the unsharded roll (every State leaf and the last step's Events);
+     K1, K2 and K3-K6 launched from both threads, counted from 0 before
+     the two-shard rolls. For the pyramid: worlds*steps/s unsharded, with
+     1 shard and with 2 shards on the one card, the host syncs a step.
+     `--phase20` runs the build and this phase alone.
 
 The last lines are the card line, the kernels' JSON record (launches
 counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
 256 x car, phase 16's three rolls, phase 17's three, phase 18's two
-golden batches and phase 19's rolls, by path and summed) and
+golden batches, phase 19's rolls and phase 20's two-shard rolls, by path
+and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -1397,7 +1408,8 @@ def car_path(dev):
     and K2 on its wheels against the edge terrain. K3-K6 against their
     plain versions on the busiest step, K2 on the busiest round; car's
     C++ golden on world 0, rolled on alone for its last 120 steps.
-    Returns the launches, the sandwich's errors and K2's."""
+    Returns the launches, the sandwich's errors, K2's and phase 20's
+    reference of the car (sharded_path's `refs`)."""
     def on_course(states):
         b = states.bodies
         low = float(b.c[..., 1][b.body_type == 2].min())
@@ -1408,13 +1420,16 @@ def car_path(dev):
                                  f"did not drive off (y {low}, chassis x {ahead})")
 
     import torch
-    kept, last = [], []
+    kept, last, ref = [], [], []
+    ref_steps = next(n for scene, _, _, n, _ in SHARDED if scene == "car")
 
     def keep(st, ev):
         # world 0's poses: the first half of car's golden roll
         b = st.bodies
         kept.append((torch.cat([b.xf_p[:1], b.a[:1, :, None]], -1), ev.color_overflow[:1]))
         last[:] = [st]
+        if len(kept) == ref_steps:
+            ref[:] = [st, ev]
 
     rec_toi = Recorder()
     launches, rec = run_joint_scene("car", None, 256, 120, dev, on_course, phase=15,
@@ -1439,7 +1454,7 @@ def car_path(dev):
                                     f"{by_type}", phase=15)
     err_k2 = compare_toi(rec_toi.busiest_toi(), "256 x car, busiest round", min_touching=1,
                          phase=15)
-    return launches, err, err_k2
+    return launches, err, err_k2, (*ref, None, None, ref_steps)
 
 
 def joint_types(dev, copies=4, compare_steps=20):
@@ -2600,6 +2615,143 @@ def checks_in_parallel(dev, phases=("18", "19")):
     return paths
 
 
+# phase 20: (scene, size, worlds, steps, timed) sharded, and the warm-up
+# steps before a timed roll (a new shard layout's first allocations). The
+# rolls that are not timed run in inference mode (the same values, less
+# host time)
+SHARDED = (("pyramid", 10, 512, 60, True), ("car", None, 256, 60, False))
+SHARD_WARMUP = 3
+
+
+def differing_worlds(a, b):
+    """The worlds in which two States (or two Events) differ in any leaf,
+    bit for bit."""
+    import torch
+    from box2d_mt_tpu_torch.state import map_leaves
+    from box2d_mt_tpu_torch.world import Events
+    if isinstance(a, Events):
+        pairs = [(getattr(a, f), getattr(b, f)) for f in Events._fields[:-1]]
+    else:
+        rest = []
+        map_leaves(lambda t: rest.append(t) or t, b)
+        it = iter(rest)
+        pairs = []
+        map_leaves(lambda t: pairs.append((t, next(it))) or t, a)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    bad = torch.zeros(pairs[0][0].shape[0], dtype=torch.bool, device=pairs[0][0].device)
+    for x, y in pairs:
+        bad |= (bits(x) != bits(y)).reshape(x.shape[0], -1).any(1)
+    return bad.nonzero().flatten().tolist()
+
+
+def sharded_roll(devices, states, n_steps, count=False, warmup=SHARD_WARMUP):
+    """n_steps of make_sharded_step(devices, **MAIN) from `states`, after
+    `warmup` steps of a copy on the same shard threads. Returns the
+    gathered State, the last Events, host syncs a step (summed over the
+    shards), the seconds of the n_steps and, with `count`, the launches
+    counted from 0 just before them."""
+    import torch
+    from box2d_mt_tpu_torch.parallel import sharding
+    step, shard = sharding.make_sharded_step(devices, **MAIN)
+    try:
+        warm = shard(states)
+        for _ in range(warmup):
+            warm, _ = step(warm, DT)
+        del warm
+        st = shard(states)
+        torch.cuda.synchronize()
+        if count:
+            zero_launches()
+        syncs = 0
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            st, ev = step(st, DT)
+            syncs += sum(e.host_syncs for e in ev.shards)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches() if count else None
+        return st.gather(), ev.gather(), syncs / n_steps, seconds, launches
+    finally:
+        step.close()
+
+
+def sharded_path(dev, refs=None):
+    """20: SHARDED's rolls over two shards on one card (and over every
+    card where there are more), each world held bit for bit to the
+    unsharded roll. `refs` maps a scene to its unsharded roll from an
+    earlier phase of this run (the State and Events after SHARDED's
+    steps, worlds*steps/s or None, host syncs a step or None, the steps),
+    which is then not rolled again. Returns {path label: launches} of the
+    two-shard rolls."""
+    import torch
+    from box2d_mt_tpu_torch.world import step_batched
+    layouts = [("2 shards on cuda:0", [dev, dev], True)]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        layouts.append((f"{n_cards} shards, one a card",
+                        [torch.device("cuda", i) for i in range(n_cards)], False))
+    card = card_line()
+    paths = {}
+    for scene, size, n_worlds, n_steps, timed in SHARDED:
+        name = scene if size is None else f"{scene}({size})"
+        mode = contextlib.nullcontext() if timed else torch.inference_mode()
+        warmup = SHARD_WARMUP if timed else 0
+        with mode:
+            base = joint_batch(scene, size, n_worlds, dev)
+        if scene in (refs or {}):
+            ref, ref_ev, rate, per_step, ref_steps = refs[scene]
+            if ref_steps != n_steps:
+                raise AssertionError(f"{name}: the reference has {ref_steps} steps, not "
+                                     f"{n_steps}")
+            rates = {"unsharded (an earlier phase's roll)": (rate, per_step)}
+        else:
+            with mode:
+                st = base
+                for _ in range(warmup):
+                    st, _ = step_batched(st, DT, **MAIN)
+                torch.cuda.synchronize()
+                syncs = 0
+                t0 = time.perf_counter()
+                st = base
+                for _ in range(n_steps):
+                    st, ev = step_batched(st, DT, **MAIN)
+                    syncs += ev.host_syncs
+                torch.cuda.synchronize()
+            rates = {"unsharded": (n_worlds * n_steps / (time.perf_counter() - t0),
+                                   syncs / n_steps)}
+            ref, ref_ev = st, ev
+        runs = list(layouts)
+        if timed:
+            runs.insert(0, ("1 shard", [dev], False))
+        for label, devices, count in runs:
+            with mode:
+                got, got_ev, per_step, seconds, launches = sharded_roll(
+                    devices, base, n_steps, count, warmup)
+            bad, bad_ev = differing_worlds(got, ref), differing_worlds(got_ev, ref_ev)
+            rates[label] = (n_worlds * n_steps / seconds, per_step)
+            print(f"phase 20 {n_worlds} x {name} x {n_steps}, {label}: {seconds:.3f} s, "
+                  f"{rates[label][0]:.1f} worlds*steps/s, host syncs/step {per_step:.2f} "
+                  f"(summed over the shards); worlds differing from the unsharded roll: "
+                  f"state {bad}, last events {bad_ev}"
+                  + (f", launches={launches}" if launches else ""))
+            if bad or bad_ev:
+                raise AssertionError(f"{name}, {label}: worlds {sorted(set(bad + bad_ev))} "
+                                     f"differ from the unsharded roll")
+            if launches is not None:
+                want = ("solve_middle", "toi") if scene == "pyramid" else \
+                    ("toi",) + SANDWICH_NAMES
+                if min(launches[k] for k in want) <= 0:
+                    raise AssertionError(f"{name}, {label}: a kernel of its path was not "
+                                         f"launched: {launches}")
+                paths[f"phase 20 {n_worlds} x {name} x {n_steps}, {label}"] = launches
+        print(f"phase 20 {n_worlds} x {name} x {n_steps} worlds*steps/s (host syncs/step"
+              + ("" if timed else "; inference mode") + "): "
+              + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.2f})" for k, v in rates.items()
+                          if v[0] is not None)
+              + f"; card: {card}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2625,6 +2777,7 @@ def main() -> int:
     only17 = sys.argv[1:] == ["--phase17"]        # the build and phase 17 alone
     # the build and phase 18 or 19 alone, or both
     only1819 = [a[-2:] for a in sys.argv[1:] if a in ("--phase18", "--phase19")]
+    only20 = sys.argv[1:] == ["--phase20"]        # the build and phase 20 alone
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2648,6 +2801,10 @@ def main() -> int:
     if only1819:
         checks_in_parallel(dev, phases=tuple(sorted(only1819)))
         lap("-".join(sorted(only1819)))
+        return 0
+    if only20:
+        sharded_path(dev)
+        lap(20)
         return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
@@ -2684,6 +2841,12 @@ def main() -> int:
         if int(ev.color_overflow.max()) != 0 or int(ev.toi_overflow.max()) != 0:
             raise AssertionError("color or TOI overflow on the main path")
 
+    main_ev = []
+
+    def healthy_main(states, ev):
+        healthy(states, ev)
+        main_ev[:] = [ev]
+
     roll(batch(10, 512, dev), 14)                    # first-use allocations
     states = batch(10, 512, dev)
     rec = Recorder()
@@ -2691,7 +2854,7 @@ def main() -> int:
     sm.solve_middle.launches = 0
     ktoi.time_of_impact_lanes.launches = 0
     t0 = time.perf_counter()
-    states, syncs = roll(states, 60, check=healthy, middle=rec.solve_middle,
+    states, syncs = roll(states, 60, check=healthy_main, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -2707,6 +2870,7 @@ def main() -> int:
     if min_y <= 0.4:
         raise AssertionError(f"a box fell through: min center y {min_y}")
     ws10 = 512 * 60 / elapsed
+    pyramid_ref = (states, main_ev[0], ws10, syncs / 60, 60)
     off = batch(10, 512, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2955,7 +3119,7 @@ def main() -> int:
     zoo_goldens(dev)
     lap(14)
     # ---- 15. mouse, friction, rope, motor, wheel, pulley and gear joints
-    launches_car, err_car, err_car_k2 = car_path(dev)
+    launches_car, err_car, err_car_k2, car_ref = car_path(dev)
     err_sw = {k: max(v, err_car[k]) for k, v in err_sw.items()}
     err_k2 = max(err_k2, err_car_k2)
     joint_types(dev)
@@ -2973,6 +3137,10 @@ def main() -> int:
     # ---- 18-19. the goldens no earlier phase held, and bit reproducibility
     paths1819 = checks_in_parallel(dev)
     lap("18-19")
+    # ---- 20. the world axis sharded over host threads and streams
+    paths20 = sharded_path(dev, refs={"pyramid": pyramid_ref, "car": car_ref})
+    del pyramid_ref, car_ref
+    lap(20)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
@@ -2983,6 +3151,7 @@ def main() -> int:
         paths[f"{large_label(name)} x {n_steps}"] = launches_large[name]
     paths.update(paths17)
     paths.update(paths1819)
+    paths.update(paths20)
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),

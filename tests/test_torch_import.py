@@ -9,7 +9,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 _MODULES = ("box2d_mt_tpu_torch", "box2d_mt_tpu_torch.world",
             "box2d_mt_tpu_torch.models.scenes", "box2d_mt_tpu_torch.joints",
             "box2d_mt_tpu_torch.joints.solver",
-            "box2d_mt_tpu_torch.parallel.rollout",
+            "box2d_mt_tpu_torch.parallel.sharding",
             "box2d_mt_tpu_torch.ops.solve_middle",
             "box2d_mt_tpu_torch.ops.distance", "box2d_mt_tpu_torch.ops.toi",
             "box2d_mt_tpu_torch.cuda_build", "box2d_mt_tpu_torch.mutate",

@@ -20,7 +20,7 @@ from box2d_mt_tpu.models import scenes as jscenes
 from box2d_mt_tpu.parallel.sharding import replicate_state
 from box2d_mt_tpu_torch import world as tworld
 from box2d_mt_tpu_torch.models import scenes as tscenes
-from box2d_mt_tpu_torch.parallel.rollout import make_rollout
+from box2d_mt_tpu_torch.parallel.sharding import make_rollout
 from box2d_mt_tpu_torch.state import state_from_numpy, to_numpy
 
 from conftest import GOLDEN
