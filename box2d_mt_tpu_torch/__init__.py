@@ -6,10 +6,11 @@ runs the step of worlds of circles, edges, polygons and chains such as
 with joints of all eleven of Box2D's types such as `models.scenes.tumbler`
 and `models.scenes.car`, with the PreSolve and contact-filter hooks, the
 batched between-step mutations (`mutate`), ray and shape casts, the PBD
-rope (`rope`), checkpoints and counts (`diagnostics`) and `draw`; its solve
-middle (one kernel, or four around the joint passes) and its time of
-impact are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu),
-each with a plain PyTorch version for CPU tensors. States are built on the card
+rope (`rope`), checkpoints and counts (`diagnostics`), `draw`, and the
+step's spans and counters (`trace`); its solve middle (one kernel, or
+four around the joint passes) and its time of impact are CUDA kernels
+for Hopper (csrc/solve_middle.cu, csrc/toi.cu), each with a plain
+PyTorch version for CPU tensors. States are built on the card
 unless the caller passes another `device`. Quick start::
 
     from box2d_mt_tpu_torch import step_batched
@@ -25,7 +26,7 @@ from . import math2d, settings, shapes, state
 from .state import (Bodies, Contacts, Fixtures, Joints, State, replicate,
                     state_from_numpy, to_numpy)
 from .world import Events, PreSolveView, WorldBuilder, possible_kinds, step, step_batched
-from . import diagnostics, draw, mutate, rope
+from . import diagnostics, draw, mutate, rope, trace
 from .ops.raycast import query_aabb, ray_cast_all, ray_cast_closest
 from .ops.distance import shape_cast
 
@@ -34,5 +35,5 @@ __all__ = [
     "possible_kinds", "State", "Bodies", "Fixtures", "Contacts", "Joints",
     "state_from_numpy", "to_numpy", "replicate", "math2d", "settings", "shapes",
     "state", "mutate", "rope", "diagnostics", "draw", "ray_cast_closest",
-    "ray_cast_all", "query_aabb", "shape_cast",
+    "ray_cast_all", "query_aabb", "shape_cast", "trace",
 ]

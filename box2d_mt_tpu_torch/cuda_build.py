@@ -37,15 +37,6 @@ def _nvcc() -> str:
 
 
 _BUILD_LOCKS: dict = {}       # a lock a source
-_COUNT_LOCK = threading.Lock()
-
-
-def count_launch(fn):
-    """Add one to the `launches` count of kernel wrapper `fn`: one lock for
-    every wrapper, so that shards stepped from several host threads count
-    every launch."""
-    with _COUNT_LOCK:
-        fn.launches += 1
 
 
 def build(name: str) -> dict:

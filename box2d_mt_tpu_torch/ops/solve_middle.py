@@ -77,7 +77,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import settings
-from ..cuda_build import count_launch, load
+from ..cuda_build import load
 from .integrate import integrate_positions
 from .solver import position_contact_math_s, velocity_contact_math_s
 
@@ -134,8 +134,6 @@ def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
                      velocity_iterations, position_iterations)
 
 
-solve_middle.launches = 0
-
 # C entry points of csrc/solve_middle.cu: (pointers, ints, a float after
 # the ints); every one ends with the stream and returns a CUDA error code
 _ENTRIES = {"solve_middle_launch": (11, 11, True),
@@ -191,7 +189,6 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
           (nw, nb, nc, mc, velocity_iterations, position_iterations,
            shape.threads_per_world, int(shape.resident), shape.tile, shape.n_buffers,
            int(shape.global_planes)), dt)
-    count_launch(solve_middle)
     return vel_out, pos_out, aux
 
 
@@ -209,16 +206,12 @@ def pack_packed(blob, perm, color_start):
                      blob, perm, color_start)
 
 
-pack_packed.launches = 0
-
-
 def _launch_pack(blob, perm, color_start):
     nw, _, nc = blob.shape
     packed = torch.empty((nw, PACKED_ROWS, nc), dtype=torch.float32,
                          device=blob.device)
     _call("pack_packed_launch", blob.device, (blob, perm, color_start, packed),
           (nw, nc, color_start.shape[-1] - 1))
-    count_launch(pack_packed)
     return packed
 
 
@@ -386,13 +379,8 @@ def vel_iter_packed(packed, perm, color_start, dyn_ab, vel):
                      _launch_vel_iter, packed, perm, color_start, dyn_ab, vel)
 
 
-vel_iter_packed.launches = 0
-
-
 def _launch_vel_iter(*args):
-    out = _launch_iter("vel_iter_packed_launch", VEL_ROWS, *args)
-    count_launch(vel_iter_packed)
-    return out
+    return _launch_iter("vel_iter_packed_launch", VEL_ROWS, *args)
 
 
 def pos_iter_packed(packed, perm, color_start, dyn_ab, pos):
@@ -403,13 +391,8 @@ def pos_iter_packed(packed, perm, color_start, dyn_ab, pos):
                      _launch_pos_iter, packed, perm, color_start, dyn_ab, pos)
 
 
-pos_iter_packed.launches = 0
-
-
 def _launch_pos_iter(*args):
-    out = _launch_iter("pos_iter_packed_launch", POS_ROWS, *args)
-    count_launch(pos_iter_packed)
-    return out
+    return _launch_iter("pos_iter_packed_launch", POS_ROWS, *args)
 
 
 def unpack_packed(packed, perm, color_start):
@@ -422,15 +405,11 @@ def unpack_packed(packed, perm, color_start):
                      _launch_unpack, packed, perm, color_start)
 
 
-unpack_packed.launches = 0
-
-
 def _launch_unpack(packed, perm, color_start):
     nw, _, nc = packed.shape
     aux = torch.empty((nw, AUX_ROWS, nc), dtype=torch.float32, device=packed.device)
     _call("unpack_packed_launch", packed.device, (packed, perm, color_start, aux),
           (nw, nc, color_start.shape[-1] - 1, *unpack_shape(nw, nc)))
-    count_launch(unpack_packed)
     return aux
 
 

@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from ..cuda_build import count_launch, load
+from ..cuda_build import load
 from . import distance
 
 SWEEP_ROWS = 8
@@ -86,9 +86,6 @@ def time_of_impact_lanes(verts_a, count_a, radius_a, sweep_a,
     raise ValueError(f"time_of_impact_lanes: no implementation for {active.device}")
 
 
-time_of_impact_lanes.launches = 0
-
-
 def _launch(args):
     """One launch of csrc/toi.cu on PyTorch's current stream; raises when
     the launch is refused."""
@@ -106,7 +103,6 @@ def _launch(args):
             err = fn(*call)
     if err != 0:
         raise RuntimeError(f"time_of_impact kernel launch failed: CUDA error {err}")
-    count_launch(time_of_impact_lanes)
     return state, t
 
 

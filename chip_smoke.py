@@ -224,6 +224,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 DT = 1.0 / 60.0
@@ -1027,8 +1028,6 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=N
     phase split of five more steps, and `on_step(states, events)` runs
     after each step. Returns (record of the run, the recorder)."""
     import torch
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     roll(joint_batch(scene, size, min(n_worlds, 8), dev), 3)    # first-use allocations
     states = joint_batch(scene, size, n_worlds, dev)
     rec = SandwichRecorder()
@@ -1040,15 +1039,12 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=N
             on_step(st, ev)
 
     torch.cuda.synchronize()
-    counters = sm.SANDWICH + (sm.solve_middle, ktoi.time_of_impact_lanes)
-    for f in counters:
-        f.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook(), toi=toi)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(zip(SANDWICH_NAMES + ("solve_middle", "toi"),
-                        (f.launches for f in counters)))
+    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi")
     n = len(rec.steps)                       # steps that solved
     want = dict(pack_packed=n, vel_iter_packed=MAIN["velocity_iterations"] * n,
                 pos_iter_packed=MAIN["position_iterations"] * n, unpack_packed=n,
@@ -1080,7 +1076,6 @@ def ccd_goldens(dev):
     import numpy as np
     import torch
     from box2d_mt_tpu_torch.models import scenes
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.state import concat_worlds
     from box2d_mt_tpu_torch.world import step_batched
     states = concat_worlds([getattr(scenes, name)(device=dev, **CCD_CAPACITY)
@@ -1088,7 +1083,7 @@ def ccd_goldens(dev):
     rec = Recorder()
     steps = max(n for _, n, _ in CCD_GOLDENS.values())
     kept = []
-    ktoi.time_of_impact_lanes.launches = 0
+    zero_launches()
     for _ in range(steps):
         states, ev = step_batched(states, DT, velocity_iterations=8, position_iterations=3,
                                   toi=rec.time_of_impact)
@@ -1098,7 +1093,7 @@ def ccd_goldens(dev):
                                  ev.toi_begin.any(1).to(torch.float32)], -1)[:, None])
     got = torch.stack(kept[0::2]).cpu().numpy()          # (step, world, body, 3)
     flags = torch.stack(kept[1::2]).cpu().numpy()[:, :, 0]
-    launches = ktoi.time_of_impact_lanes.launches
+    launches = read_launches("toi")["toi"]
     if launches <= 0 or launches != len(rec.toi):
         raise AssertionError(f"CCD scenes: {launches} K2 launches for {len(rec.toi)} calls")
     worst = {}
@@ -1167,7 +1162,6 @@ def circle_stack(dev, floor):
     against their plain versions and the launches of the run."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     n_worlds, n_steps = 512, 120
     roll(joint_batch("sphere_stack", 10, 8, dev), 3)        # first-use allocations
     states = joint_batch("sphere_stack", 10, n_worlds, dev)
@@ -1179,15 +1173,13 @@ def circle_stack(dev, floor):
                                                    ev.toi_overflow.max())))
 
     torch.cuda.synchronize()
-    sm.solve_middle.launches = 0
-    ktoi.time_of_impact_lanes.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"solve_middle": sm.solve_middle.launches,
-                "toi": ktoi.time_of_impact_lanes.launches}
+    launches = read_launches("solve_middle", "toi")
     b = states.bodies
     if min(launches.values()) <= 0:
         raise AssertionError(f"sphere_stack did not launch every kernel: {launches}")
@@ -1629,8 +1621,6 @@ def large_path(name, dev, inside, phase="16"):
     the launches, K1's path and the phase split with the pair refresh
     apart. Returns (launches, the recorder, the final states)."""
     import torch
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.state import replicate
     _, n_worlds, n_steps = LARGE[name]
     one = large_scene(name, dev)
@@ -1643,17 +1633,14 @@ def large_path(name, dev, inside, phase="16"):
         worst.copy_(torch.maximum(worst, torch.stack([ev.pair_overflow.max(),
                                                       ev.color_overflow.max()])))
 
-    counters = (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH
     torch.cuda.synchronize()
-    for f in counters:
-        f.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(zip(("solve_middle", "toi") + SANDWICH_NAMES,
-                        (f.launches for f in counters)))
+    launches = read_launches()
     label = large_label(name)
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
@@ -1872,8 +1859,6 @@ def hook_path(name, dev):
     """17(a): one hook world's path through K1 and K2, launches from 0."""
     import torch
     from box2d_mt_tpu_torch.models import scenes
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.state import replicate
     n_worlds, n_steps = HOOK_PATHS[name]
     hook = HOOKS[name]
@@ -1882,15 +1867,13 @@ def hook_path(name, dev):
     start = replicate(one, n_worlds)
     rec = BusiestRecorder()
     torch.cuda.synchronize()
-    for f in (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH:
-        f.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(start, n_steps, pre_solve_fn=hook, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"solve_middle": sm.solve_middle.launches,
-                "toi": ktoi.time_of_impact_lanes.launches}
+    launches = read_launches("solve_middle", "toi")
     label = f"{n_worlds} x {name}"
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
@@ -2100,8 +2083,6 @@ def runtime_joints(dev, n_worlds=128, n_steps=60):
     import torch
     from box2d_mt_tpu_torch import mutate
     from box2d_mt_tpu_torch.models import scenes
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.state import replicate
     states = replicate(scenes.pyramid(6, device=dev,
                                       joint_capacity={"revolute": 2, "distance": 2}), n_worlds)
@@ -2114,15 +2095,12 @@ def runtime_joints(dev, n_worlds=128, n_steps=60):
         raise AssertionError("a runtime joint found no free slot")
     rec = SandwichRecorder()
     torch.cuda.synchronize()
-    counters = sm.SANDWICH + (sm.solve_middle, ktoi.time_of_impact_lanes)
-    for f in counters:
-        f.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, sandwich=rec.hook())
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(zip(SANDWICH_NAMES + ("solve_middle", "toi"),
-                        (f.launches for f in counters)))
+    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("runtime joints: NaN/inf in the body state")
@@ -2343,18 +2321,46 @@ def consistency_tool():
     return consistency_torch
 
 
+_LAUNCHES = dict.fromkeys(COUNTED, 0)
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(name):
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
+
+
 def zero_launches():
+    """Count the CUDA launches of K1-K6 and K2 in this process from 0, by
+    the entry each goes through: ops/solve_middle.py's `_call` (K1 and the
+    sandwich, by its C entry point's name) and ops/toi.py's `_launch`
+    (K2), which the first call wraps. A launch counts once it is taken,
+    from any thread."""
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     from box2d_mt_tpu_torch.ops import toi as ktoi
-    for f in (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH:
-        f.launches = 0
+    if not getattr(sm._call, "counted", False):
+        call, launch = sm._call, ktoi._launch
+
+        def counted_call(name, *args, **kwargs):
+            out = call(name, *args, **kwargs)
+            _count_launch(name.removesuffix("_launch"))
+            return out
+
+        def counted_launch(*args):
+            out = launch(*args)
+            _count_launch("toi")
+            return out
+
+        counted_call.counted = counted_launch.counted = True
+        sm._call, ktoi._launch = counted_call, counted_launch
+    with _LAUNCH_LOCK:
+        _LAUNCHES.update(dict.fromkeys(COUNTED, 0))
 
 
-def read_launches():
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
-    return dict(zip(COUNTED, (f.launches for f in
-                              (sm.solve_middle, ktoi.time_of_impact_lanes) + sm.SANDWICH)))
+def read_launches(*names):
+    """The launches since `zero_launches()` of `names` (default COUNTED)."""
+    with _LAUNCH_LOCK:
+        return {k: _LAUNCHES[k] for k in names or COUNTED}
 
 
 def sync(dev):
@@ -2851,15 +2857,13 @@ def main() -> int:
     states = batch(10, 512, dev)
     rec = Recorder()
     torch.cuda.synchronize()
-    sm.solve_middle.launches = 0
-    ktoi.time_of_impact_lanes.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     states, syncs = roll(states, 60, check=healthy_main, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"solve_middle": sm.solve_middle.launches,
-                "toi": ktoi.time_of_impact_lanes.launches}
+    launches = read_launches("solve_middle", "toi")
     b = states.bodies
     dyn = b.body_type == 2
     if min(launches.values()) <= 0:
@@ -2918,15 +2922,13 @@ def main() -> int:
     roll(batch(44, 8, dev), 1)
     rec = Recorder()
     torch.cuda.synchronize()
-    sm.solve_middle.launches = 0
-    ktoi.time_of_impact_lanes.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     big, syncs44 = roll(big, 20, check=healthy, middle=rec.solve_middle,
                         toi=rec.time_of_impact)
     torch.cuda.synchronize()
     el44 = time.perf_counter() - t0
-    launches44 = {"solve_middle": sm.solve_middle.launches,
-                  "toi": ktoi.time_of_impact_lanes.launches}
+    launches44 = read_launches("solve_middle", "toi")
     if not bool(torch.isfinite(big.bodies.c).all()):
         raise AssertionError("NaN/inf in the pyramid(44) body state")
     print(f"phase 6 128 x pyramid(44) x 20 steps: {el44:.3f} s, "

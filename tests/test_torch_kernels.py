@@ -31,6 +31,8 @@ thrown at a static circle, a thin static box and an edge, where every
 proxy B has one vertex and each lane runs several conservative-advancement
 trips, its GJK warm-started from the previous trip's simplex."""
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -49,6 +51,31 @@ from box2d_mt_tpu_torch.state import replicate
 from box2d_mt_tpu_torch.world import WorldBuilder, step_batched
 
 DT = 1.0 / 60.0
+
+
+@contextlib.contextmanager
+def launched():
+    """Counts the CUDA launches the block makes, by the C entry point each
+    goes through: ops/solve_middle.py's `_call` by its entry's name (K1,
+    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2)."""
+    ran = collections.Counter()
+    call, launch = sm._call, ktoi._launch
+
+    def counted_call(name, *args, **kwargs):
+        out = call(name, *args, **kwargs)
+        ran[name] += 1
+        return out
+
+    def counted_launch(*args):
+        out = launch(*args)
+        ran["toi_launch"] += 1
+        return out
+
+    sm._call, ktoi._launch = counted_call, counted_launch
+    try:
+        yield ran
+    finally:
+        sm._call, ktoi._launch = call, launch
 
 
 @pytest.fixture(scope="module")
@@ -77,11 +104,11 @@ def test_solve_middle_kernel_matches_plain(rolled, max_colors):
                          middle=capture)
     assert (int(ev.color_overflow.min()) > 0) == (max_colors == 3)
     args = got["args"]
-    launches = sm.solve_middle.launches
-    k_vel, k_pos, k_aux = sm.solve_middle(*args)
+    with launched() as ran:
+        k_vel, k_pos, k_aux = sm.solve_middle(*args)
     p_vel, p_pos, p_aux = sm.solve_middle_plain(*args)
     torch.cuda.synchronize()
-    assert sm.solve_middle.launches == launches + 1
+    assert ran == {"solve_middle_launch": 1}
     torch.testing.assert_close(k_pos, p_pos, rtol=0, atol=1e-5)
     torch.testing.assert_close(k_vel, p_vel, rtol=0, atol=1e-4)
     torch.testing.assert_close(k_aux[:, :4], p_aux[:, :4], rtol=0, atol=1e-4)
@@ -145,11 +172,11 @@ def test_toi_kernel_matches_plain(scene):
             break
     assert got, "no lane reported touching"
     args = got[0]
-    launches = ktoi.time_of_impact_lanes.launches
-    k_state, k_t = ktoi.time_of_impact_lanes(*args)
+    with launched() as ran:
+        k_state, k_t = ktoi.time_of_impact_lanes(*args)
     p_state, p_t = ktoi.time_of_impact_lanes_plain(*args)
     torch.cuda.synchronize()
-    assert ktoi.time_of_impact_lanes.launches == launches + 1
+    assert ran == {"toi_launch": 1}
     # same arithmetic in the same order, built with --fmad=false: bit equal
     assert torch.equal(k_state, p_state)
     assert torch.equal(k_t, p_t)
@@ -247,13 +274,13 @@ def test_toi_kernel_matches_plain_at_every_launch_shape(case):
     n, active = _toi_case(case)
     args = _golden_lanes(n, "cuda", active)
     p_state, p_t = ktoi.time_of_impact_lanes_plain(*args)
-    launches = ktoi.time_of_impact_lanes.launches
-    for _ in range(2):
-        k_state, k_t = ktoi.time_of_impact_lanes(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(k_state, p_state)
-        assert torch.equal(k_t, p_t)
-    assert ktoi.time_of_impact_lanes.launches == launches + 2
+    with launched() as ran:
+        for _ in range(2):
+            k_state, k_t = ktoi.time_of_impact_lanes(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(k_state, p_state)
+            assert torch.equal(k_t, p_t)
+    assert ran == {"toi_launch": 2}
     blocks, span = ktoi.grid(n)
     assert blocks * span >= n > (blocks - 1) * span and span % 32 == 0
     on = torch.as_tensor(active).cuda()
@@ -289,9 +316,11 @@ def tumbler_calls():
     for _ in range(75):
         states, _ = step_batched(states, DT, max_colors=16)
     rec = _RecordedSandwich()
-    before = [f.launches for f in sm.SANDWICH]
-    step_batched(states, DT, max_colors=16, sandwich=rec.hook())
-    assert [f.launches - b for f, b in zip(sm.SANDWICH, before)] == [1, 8, 3, 1]
+    with launched() as ran:
+        step_batched(states, DT, max_colors=16, sandwich=rec.hook())
+    assert [ran[k] for k in ("pack_packed_launch", "vel_iter_packed_launch",
+                             "pos_iter_packed_launch", "unpack_packed_launch",
+                             "solve_middle_launch")] == [1, 8, 3, 1, 0]
     return rec.calls
 
 
@@ -414,11 +443,11 @@ def test_solve_middle_kernel_matches_plain_at_every_shape(middle_args):
     shape = sm.middle_shape(nb, nc, color_start.shape[1] - 1)
     assert shape.resident == (nc <= 1024)
     assert shape.global_planes == ("global_planes" in name)
-    launches = sm.solve_middle.launches
-    k_vel, k_pos, k_aux = sm.solve_middle(*args)
+    with launched() as ran:
+        k_vel, k_pos, k_aux = sm.solve_middle(*args)
     p_vel, p_pos, p_aux = sm.solve_middle_plain(*args)
     torch.cuda.synchronize()
-    assert sm.solve_middle.launches == launches + 1
+    assert ran == {"solve_middle_launch": 1}
     torch.testing.assert_close(k_pos, p_pos, rtol=0, atol=1e-5)
     torch.testing.assert_close(k_vel, p_vel, rtol=0, atol=1e-4)
     torch.testing.assert_close(k_aux[:, :4], p_aux[:, :4], rtol=0, atol=1e-4)

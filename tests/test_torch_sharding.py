@@ -16,11 +16,9 @@ shard stepped from its own host thread.
     no TOI phase reports no overflow, whatever its batch-mates do; a
     mutation refreshes the pair table of its own world only.
   * The API (`batch_states` against JAX's, `make_batched_step` against
-    `step_batched`), the refusals, a shard's exception in the caller, and
-    the launch counters under threads.
+    `step_batched`), the refusals, and a shard's exception in the caller.
+    (The step's counts under shard threads: tests/test_torch_trace.py.)
 """
-
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +30,7 @@ from jax.sharding import Mesh
 from box2d_mt_tpu import world as jworld
 from box2d_mt_tpu.models import scenes as jscenes
 from box2d_mt_tpu.parallel import sharding as jsharding
-from box2d_mt_tpu_torch import cuda_build, mutate
+from box2d_mt_tpu_torch import mutate
 from box2d_mt_tpu_torch.models import scenes
 from box2d_mt_tpu_torch.parallel import sharding
 from box2d_mt_tpu_torch.state import concat_worlds, map_leaves, state_from_numpy
@@ -256,21 +254,4 @@ def test_shard_exception_reaches_the_caller():
         step(st, DT)
     step.close()
 
-
-def test_launch_counts_are_exact_under_threads():
-    def kernel():
-        pass
-
-    kernel.launches = 0
-
-    def launch():
-        for _ in range(20000):
-            cuda_build.count_launch(kernel)
-
-    threads = [threading.Thread(target=launch) for _ in range(8)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert kernel.launches == 8 * 20000
 
