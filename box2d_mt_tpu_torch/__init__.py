@@ -8,10 +8,11 @@ and `models.scenes.car`, with the PreSolve and contact-filter hooks, the
 batched between-step mutations (`mutate`), ray and shape casts, the PBD
 rope (`rope`), checkpoints and counts (`diagnostics`), `draw`, and the
 step's spans and counters (`trace`); its solve middle (one kernel, or
-four around the joint passes) and its time of impact are CUDA kernels
-for Hopper (csrc/solve_middle.cu, csrc/toi.cu), each with a plain
-PyTorch version for CPU tensors. States are built on the card
-unless the caller passes another `device`. Quick start::
+four around the joint passes), its time of impact and its constraint
+coloring are CUDA kernels for Hopper (csrc/solve_middle.cu, csrc/toi.cu,
+csrc/coloring.cu), each with a plain PyTorch version for CPU tensors.
+States are built on the card unless the caller passes another `device`.
+Quick start::
 
     from box2d_mt_tpu_torch import step_batched
     from box2d_mt_tpu_torch.models import scenes

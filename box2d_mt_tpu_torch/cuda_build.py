@@ -5,6 +5,10 @@ with a plain C interface, which `ctypes` loads (no PyTorch headers, so a
 build takes seconds). Libraries land in `build/box2d_mt_tpu_torch/` at the
 checkout root, keyed by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused.
+
+The ops modules launch through `call` and check a wrapper's tensors with
+`need`: a launch entry takes data pointers, then C ints, then C floats,
+then the stream, and returns a CUDA error code.
 """
 
 import ctypes
@@ -16,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "box2d_mt_tpu_torch"
@@ -69,3 +75,40 @@ def _build(name: str) -> dict:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)["path"]))
+
+
+@functools.cache
+def entry(source: str, name: str, argtypes: tuple):
+    """The C function `name` of csrc/<source>.cu, returning an int."""
+    fn = getattr(load(source), name)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def call(source: str, name: str, device, pointers, ints, floats=()):
+    """Launch `name` of csrc/<source>.cu on PyTorch's current stream of
+    `device`: the tensors' data pointers (None: a null pointer), the ints,
+    the floats, the stream. Raises when the launch is refused."""
+    fn = entry(source, name, (ctypes.c_void_p,) * len(pointers) + (ctypes.c_int,) * len(ints)
+               + (ctypes.c_float,) * len(floats) + (ctypes.c_void_p,))
+    args = [None if t is None else t.data_ptr() for t in pointers]
+    args += [*ints, *map(float, floats), torch._C._cuda_getCurrentRawStream(device.index)]
+    if torch._C._cuda_getDevice() == device.index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def need(fn: str, name: str, t, dtype, shape, device):
+    """Refuse argument `name` of wrapper `fn` unless it is a contiguous
+    `dtype` tensor of `shape` on `device`."""
+    if t.dtype != dtype or t.shape != shape:
+        raise ValueError(f"{fn}: {name} must be {dtype} of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")

@@ -1451,8 +1451,9 @@ def init_joints(joints, bodies, awake, v, w, dt, dt_ratio, warm_starting,
                 nb, max_colors, syncs: HostSyncs = None):
     """Color all joints but the gears jointly and init the per-type data.
     `dt_ratio` is (W,). Returns (JointData, state): state maps a block
-    name to its impulses and limit states. The coloring's rounds and the
-    color count are host reads, counted in `syncs`."""
+    name to its impulses and limit states. The color count is one host
+    read, and so is each round of the coloring where it runs `_luby` (on
+    the CPU; a card colors in one launch of K7), counted in `syncs`."""
     from . import blocks as joint_blocks
     syncs = syncs or HostSyncs()
     bl = [(n, b) for n, b in joint_blocks(joints) if n != "gear"]

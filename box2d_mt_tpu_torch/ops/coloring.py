@@ -7,9 +7,18 @@ JAX package's (they fix the Gauss-Seidel order), so both of its tiers are
 ported as they are:
 
   * K <= 2048: Luby-style maximal independent sets by slot priority, with
-    the (K, K) conflict matrix as a float32 batched product of 0/1 values;
+    the (K, K) conflict matrix as a float32 batched product of 0/1 values
+    (`_luby`, the plain version);
   * K > 2048: Jones-Plassmann with bit-reversed slot priorities and
     per-body color bitmasks (held in int64 lanes here; at most 32 colors).
+
+With fixed slot priorities the Luby tier's sets are those of first-fit
+greedy coloring in slot order, which K7 (csrc/coloring.cu,
+`color_walk_kernel`) computes on a card: one block a world walks its slots
+in order over per-body color bitmasks, in one launch and with no host
+read. `color_constraints` takes K7 for every CUDA batch of the Luby tier
+and `_luby` for the tier on other devices; `color_walk` is K7's wrapper,
+and the card-only tests hold it to `_luby` bit for bit.
 
 Loops whose trip count depends on the data read one host predicate per
 iteration, counted in `syncs`. A world that finishes early idles through
@@ -19,10 +28,13 @@ package's vmapped while loops.
 
 import torch
 
+from ..cuda_build import call, need
 from ..math2d import take
 from .sync import HostSyncs
 
 BIG = torch.iinfo(torch.int32).max
+LUBY_MAX_SLOTS = 2048       # the Luby tier's K; Jones-Plassmann above
+WALK_MAX_COLORS = 32        # K7's per-body masks are 32 bits
 
 
 def color_constraints(body_a, body_b, conflict_a, conflict_b, active,
@@ -33,18 +45,64 @@ def color_constraints(body_a, body_b, conflict_a, conflict_b, active,
     body_a/body_b (W, K) endpoint slots, conflict_a/b (W, K) bool (dynamic
     endpoints), active (W, K) bool. Returns (color (W, K) i32 with -1 for
     inactive, overflow (W,) i32) and with `with_rank` the rank of each
-    constraint within its color in slot order."""
+    constraint within its color in slot order. A launch of K7 is the
+    event "coloring.kernel" in `syncs`."""
     syncs = syncs or HostSyncs()
-    if body_a.shape[1] <= 2048:
-        color, overflow, rank = _luby(body_a, body_b, conflict_a, conflict_b,
-                                      active, n_bodies, max_colors, syncs)
-    else:
+    k = body_a.shape[1]
+    if k > LUBY_MAX_SLOTS:
         color, overflow, rank = _jones_plassmann(
             body_a, body_b, conflict_a, conflict_b, active, n_bodies,
             max_colors, syncs)
+    elif body_a.device.type == "cuda":
+        color, overflow, rank = color_walk(body_a, body_b, conflict_a, conflict_b,
+                                           active, n_bodies, max_colors)
+        syncs.event("coloring.kernel")
+    else:
+        color, overflow, rank = _luby(body_a, body_b, conflict_a, conflict_b,
+                                      active, n_bodies, max_colors, syncs)
     if with_rank:
         return color, overflow, rank
     return color, overflow
+
+
+def color_walk(body_a, body_b, conflict_a, conflict_b, active, n_bodies: int,
+               max_colors: int):
+    """K7: the Luby tier's (color, overflow, rank) of CUDA tensors in one
+    launch on PyTorch's current stream, equal to `_luby`'s. body_a/body_b
+    (W, K) int64, conflict_a/b and active (W, K) bool, all contiguous on
+    one card, max_colors in [1, 32]; refuses anything else before any
+    launch."""
+    fn = "color_walk"
+    if body_a.dim() != 2:
+        raise ValueError(f"{fn}: body_a must be (W, K), got {tuple(body_a.shape)}")
+    shape, dev = tuple(body_a.shape), body_a.device
+    for name, t, dtype in (("body_a", body_a, torch.int64),
+                           ("body_b", body_b, torch.int64),
+                           ("conflict_a", conflict_a, torch.bool),
+                           ("conflict_b", conflict_b, torch.bool),
+                           ("active", active, torch.bool)):
+        need(fn, name, t, dtype, shape, dev)
+    if not 1 <= max_colors <= WALK_MAX_COLORS:
+        raise ValueError(f"{fn}: max_colors={max_colors} outside the kernel's "
+                         f"[1, {WALK_MAX_COLORS}]")
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: the kernel needs CUDA tensors, got {dev}")
+    return _launch(body_a, body_b, conflict_a, conflict_b, active, n_bodies,
+                   max_colors)
+
+
+def _launch(body_a, body_b, conflict_a, conflict_b, active, n_bodies, max_colors):
+    """One launch of csrc/coloring.cu; raises when the launch is refused."""
+    nw, k = body_a.shape
+    dev = body_a.device
+    color = torch.empty((nw, k), dtype=torch.int32, device=dev)
+    rank = torch.empty_like(color)
+    overflow = torch.empty(nw, dtype=torch.int32, device=dev)
+    masks = torch.empty((nw, n_bodies), dtype=torch.int32, device=dev)
+    call("coloring", "color_launch", dev,
+         (body_a, body_b, conflict_a, conflict_b, active, color, rank, overflow, masks),
+         (nw, k, n_bodies, max_colors))
+    return color, overflow, rank
 
 
 def _luby(body_a, body_b, conflict_a, conflict_b, active, n_bodies,

@@ -70,14 +70,13 @@ state at its start and applying its deltas in lane order (Jacobi per
 chunk, the Pallas kernel's chunking).
 """
 
-import ctypes
 import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from .. import settings
-from ..cuda_build import load
+from ..cuda_build import call, need
 from .integrate import integrate_positions
 from .solver import position_contact_math_s, velocity_contact_math_s
 
@@ -88,23 +87,13 @@ MIN_SEP_ROW = 51
 AUX_ROWS = 5
 
 
-def _need(fn, name, t, dtype, shape, device):
-    if t.dtype != dtype or t.shape != shape:
-        raise ValueError(f"{fn}: {name} must be {dtype} of shape {shape}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be contiguous")
-
-
 def _need_layout(fn, perm, color_start, dyn_ab, nw, nc, device):
-    _need(fn, "perm", perm, torch.int32, (nw, nc), device)
+    need(fn, "perm", perm, torch.int32, (nw, nc), device)
     if color_start.dim() != 2 or color_start.shape[1] < 2:
         raise ValueError(f"{fn}: color_start needs max_colors + 1 >= 2 columns")
-    _need(fn, "color_start", color_start, torch.int32, (nw, color_start.shape[1]), device)
+    need(fn, "color_start", color_start, torch.int32, (nw, color_start.shape[1]), device)
     if dyn_ab is not None:
-        _need(fn, "dyn_ab", dyn_ab, torch.uint8, (nw, nc), device)
+        need(fn, "dyn_ab", dyn_ab, torch.uint8, (nw, nc), device)
 
 
 def _dispatch(fn, first, plain, launch, *args):
@@ -124,52 +113,20 @@ def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
     nw, _, nc = blob.shape
     nb = vel.shape[-1]
     dev = blob.device
-    _need("solve_middle", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), dev)
+    need("solve_middle", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), dev)
     _need_layout("solve_middle", perm, color_start, dyn_ab, nw, nc, dev)
-    _need("solve_middle", "vel", vel, torch.float32, (nw, 3, nb), dev)
-    _need("solve_middle", "pos", pos, torch.float32, (nw, 3, nb), dev)
-    _need("solve_middle", "movable", movable, torch.bool, (nw, nb), dev)
+    need("solve_middle", "vel", vel, torch.float32, (nw, 3, nb), dev)
+    need("solve_middle", "pos", pos, torch.float32, (nw, 3, nb), dev)
+    need("solve_middle", "movable", movable, torch.bool, (nw, nb), dev)
     return _dispatch("solve_middle", blob, solve_middle_plain, _launch,
                      blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
                      velocity_iterations, position_iterations)
 
 
-# C entry points of csrc/solve_middle.cu: (pointers, ints, a float after
-# the ints); every one ends with the stream and returns a CUDA error code
-_ENTRIES = {"solve_middle_launch": (11, 11, True),
-            "pack_packed_launch": (4, 3, False),
-            "vel_iter_packed_launch": (6, 9, False),
-            "pos_iter_packed_launch": (6, 9, False),
-            "unpack_packed_launch": (4, 5, False)}
-
-
-@functools.cache
-def _entry(name):
-    n_pointers, n_ints, with_dt = _ENTRIES[name]
-    fn = getattr(load("solve_middle"), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                   + ([ctypes.c_float] if with_dt else []) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _call(name, device, pointers, ints, dt=None):
-    """Launch one kernel of csrc/solve_middle.cu on PyTorch's current
-    stream of `device` (None: a null pointer); raises when the launch is
-    refused."""
-    fn = _entry(name)
-    args = [None if t is None else t.data_ptr() for t in pointers]
-    args += ints
-    if dt is not None:
-        args.append(float(dt))
-    args.append(torch._C._cuda_getCurrentRawStream(device.index))
-    if torch._C._cuda_getDevice() == device.index:
-        err = fn(*args)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    """Launch one kernel of csrc/solve_middle.cu (`cuda_build.call`), the
+    time step `dt` after the ints where the entry takes one."""
+    call("solve_middle", name, device, pointers, ints, () if dt is None else (dt,))
 
 
 def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
@@ -200,7 +157,7 @@ def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,
 def pack_packed(blob, perm, color_start):
     """Slot-order constraint rows -> the color-major packed table."""
     nw, _, nc = blob.shape
-    _need("pack_packed", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), blob.device)
+    need("pack_packed", "blob", blob, torch.float32, (nw, BLOB_ROWS, nc), blob.device)
     _need_layout("pack_packed", perm, color_start, None, nw, nc, blob.device)
     return _dispatch("pack_packed", blob, pack_packed_plain, _launch_pack,
                      blob, perm, color_start)
@@ -355,9 +312,9 @@ def unpack_shape(n_worlds, n_contacts):
 def _need_iter(fn, packed, perm, color_start, dyn_ab, body, body_name):
     nw, _, nc = packed.shape
     dev = packed.device
-    _need(fn, "packed", packed, torch.float32, (nw, PACKED_ROWS, nc), dev)
+    need(fn, "packed", packed, torch.float32, (nw, PACKED_ROWS, nc), dev)
     _need_layout(fn, perm, color_start, dyn_ab, nw, nc, dev)
-    _need(fn, body_name, body, torch.float32, (nw, 3, body.shape[-1]), dev)
+    need(fn, body_name, body, torch.float32, (nw, 3, body.shape[-1]), dev)
 
 
 def _launch_iter(name, rows, packed, perm, color_start, dyn_ab, body):
@@ -398,8 +355,8 @@ def _launch_pos_iter(*args):
 def unpack_packed(packed, perm, color_start):
     """Impulses and min_sep back to slot order, 0 where unsolved."""
     nw, _, nc = packed.shape
-    _need("unpack_packed", "packed", packed, torch.float32, (nw, PACKED_ROWS, nc),
-          packed.device)
+    need("unpack_packed", "packed", packed, torch.float32, (nw, PACKED_ROWS, nc),
+         packed.device)
     _need_layout("unpack_packed", perm, color_start, None, nw, nc, packed.device)
     return _dispatch("unpack_packed", packed, unpack_packed_plain,
                      _launch_unpack, packed, perm, color_start)

@@ -37,11 +37,10 @@ neighbouring addresses.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import call, entry
 from . import distance
 
 SWEEP_ROWS = 8
@@ -93,29 +92,8 @@ def _launch(args):
     device, n = active.device, active.shape[0]
     state = torch.empty(n, dtype=torch.int32, device=device)
     t = torch.empty(n, dtype=torch.float32, device=device)
-    call = (*[a.data_ptr() for a in args], state.data_ptr(), t.data_ptr(), n,
-            torch._C._cuda_getCurrentRawStream(device.index))
-    fn = _entry("toi_launch")
-    if torch._C._cuda_getDevice() == device.index:
-        err = fn(*call)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*call)
-    if err != 0:
-        raise RuntimeError(f"time_of_impact kernel launch failed: CUDA error {err}")
+    call("toi", "toi_launch", device, (*args, state, t), (n,))
     return state, t
-
-
-# C entry points of csrc/toi.cu and their arguments; each returns an int
-_ENTRIES = {"toi_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p],
-            "toi_grid": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
-
-
-@functools.cache
-def _entry(name):
-    fn = getattr(load("toi"), name)
-    fn.argtypes, fn.restype = _ENTRIES[name], ctypes.c_int
-    return fn
 
 
 def grid(n_lanes):
@@ -123,7 +101,8 @@ def grid(n_lanes):
     lanes a block). At most one block an SM, so one wave; each block
     compacts the active lanes of its span and solves them 32 a warp."""
     span = ctypes.c_int(0)
-    blocks = _entry("toi_grid")(n_lanes, ctypes.byref(span))
+    blocks = entry("toi", "toi_grid", (ctypes.c_int, ctypes.POINTER(ctypes.c_int)))(
+        n_lanes, ctypes.byref(span))
     return blocks, span.value
 
 

@@ -30,6 +30,9 @@ stepped it:
 each span and the step's events:
 
     coloring.runs     color_constraints ran: the color cache missed
+    coloring.kernel   color_constraints launched K7 (csrc/coloring.cu), the
+                      joints' colorings included: on a card, every coloring
+                      of at most 2048 slots; on the CPU, none
     pairs.refreshes   the post-solve ran find_pairs: a fixture left its
                       fat AABB in some world
     toi.rounds        calls of the time-of-impact entry (K2)
@@ -58,7 +61,7 @@ phase that the next host reads are put to.
 import contextlib
 import threading
 
-EVENTS = ("coloring.runs", "pairs.refreshes", "toi.rounds")
+EVENTS = ("coloring.runs", "coloring.kernel", "pairs.refreshes", "toi.rounds")
 
 
 class Counts:

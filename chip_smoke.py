@@ -207,12 +207,25 @@ on any failure:
      the two-shard rolls. For the pyramid: worlds*steps/s unsharded, with
      1 shard and with 2 shards on the one card, the host syncs a step.
      `--phase20` runs the build and this phase alone.
+ 21. the coloring kernel K7 (csrc/coloring.cu) on the main path of the
+     benchmark's scale: 512 x pyramid(20) (K = 1024 slots, N = 256
+     bodies) for 60 steps inside `trace.collect()`, every coloring of
+     the roll recorded; K7 held bit for bit to `_luby` on the call with
+     the most active slots, at max_colors 16 and 3 (overflow); its
+     launches, counted from 0 before each roll, against the event
+     "coloring.kernel" and the colorings ("coloring.runs"), and the host
+     reads a step, and the same for 256 x
+     tumbler(200) x 30 (joints and contacts); K7's times per call as in
+     phase 8 (graph replay, profiler, host), `_luby`'s (events around
+     eager calls) and the bound: the bytes of the call (int64 endpoints,
+     three flag bytes and the int32 color and rank a slot, the overflow)
+     over the HBM rate. `--phase21` runs the build and this phase alone.
 
 The last lines are the card line, the kernels' JSON record (launches
 counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
 256 x car, phase 16's three rolls, phase 17's three, phase 18's two
-golden batches, phase 19's rolls and phase 20's two-shard rolls, by path
-and summed) and
+golden batches, phase 19's rolls, phase 20's two-shard rolls and phase
+21's two rolls, by path and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -244,8 +257,10 @@ KERNELS = {
                             replaces="box2d_mt_tpu/ops/pallas_solve.py:429"),
     "unpack_packed": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/solve_middle.cu",
                           replaces="box2d_mt_tpu/ops/pallas_solve.py:462"),
+    "color_walk": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/coloring.cu",
+                       replaces=None),
 }
-SOURCES = ("solve_middle", "toi")      # csrc/<name>.cu, one nvcc each
+SOURCES = ("solve_middle", "toi", "coloring")    # csrc/<name>.cu, one nvcc each
 SANDWICH_NAMES = ("pack_packed", "vel_iter_packed", "pos_iter_packed", "unpack_packed")
 # one NVIDIA H100 SXM (NVIDIA data sheet): HBM rate and f32 peak
 # outside the tensor cores
@@ -1044,7 +1059,7 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=N
     states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook(), toi=toi)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi")
+    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi", "color_walk")
     n = len(rec.steps)                       # steps that solved
     want = dict(pack_packed=n, vel_iter_packed=MAIN["velocity_iterations"] * n,
                 pos_iter_packed=MAIN["position_iterations"] * n, unpack_packed=n,
@@ -1179,7 +1194,7 @@ def circle_stack(dev, floor):
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi")
+    launches = read_launches("solve_middle", "toi", "color_walk")
     b = states.bodies
     if min(launches.values()) <= 0:
         raise AssertionError(f"sphere_stack did not launch every kernel: {launches}")
@@ -1873,13 +1888,13 @@ def hook_path(name, dev):
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi")
+    launches = read_launches("solve_middle", "toi", "color_walk")
     label = f"{n_worlds} x {name}"
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError(f"{label}: NaN/inf in the body state")
     if min(launches.values()) <= 0:
-        raise AssertionError(f"{label}: K1 or K2 was not launched: {launches}")
+        raise AssertionError(f"{label}: K1, K2 or K7 was not launched: {launches}")
     if name == "conveyor_belt":
         moved = float((b.c[:, 2:7, 0] - start.bodies.c[:, 2:7, 0]).min())
         check = f"every box carried >= {moved:.3f} m"
@@ -2100,7 +2115,7 @@ def runtime_joints(dev, n_worlds=128, n_steps=60):
     states, syncs = roll(states, n_steps, sandwich=rec.hook())
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi")
+    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi", "color_walk")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("runtime joints: NaN/inf in the body state")
@@ -2312,7 +2327,7 @@ CONSISTENCY_HEAVY = (("64 x pyramid(10)", "pyramid", (10,), 64),
                      ("64 x sphere_stack(10)", "sphere_stack", (10,), 64),
                      ("16 x car", "car", (), 16),
                      ("4 x many_bodies(1200)", "many_bodies", (1200,), 4))
-COUNTED = ("solve_middle", "toi") + SANDWICH_NAMES
+COUNTED = ("solve_middle", "toi") + SANDWICH_NAMES + ("color_walk",)
 
 
 def consistency_tool():
@@ -2331,28 +2346,33 @@ def _count_launch(name):
 
 
 def zero_launches():
-    """Count the CUDA launches of K1-K6 and K2 in this process from 0, by
-    the entry each goes through: ops/solve_middle.py's `_call` (K1 and the
-    sandwich, by its C entry point's name) and ops/toi.py's `_launch`
-    (K2), which the first call wraps. A launch counts once it is taken,
-    from any thread."""
+    """Count the CUDA launches of K1-K7 in this process from 0, by the
+    entry each goes through: ops/solve_middle.py's `_call` (K1 and the
+    sandwich, by its C entry point's name), ops/toi.py's `_launch` (K2)
+    and ops/coloring.py's `_launch` (K7, "color_walk"), which the first
+    call wraps. A launch counts once it is taken, from any thread."""
+    from box2d_mt_tpu_torch.ops import coloring
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     from box2d_mt_tpu_torch.ops import toi as ktoi
     if not getattr(sm._call, "counted", False):
-        call, launch = sm._call, ktoi._launch
+        call = sm._call
 
         def counted_call(name, *args, **kwargs):
             out = call(name, *args, **kwargs)
             _count_launch(name.removesuffix("_launch"))
             return out
 
-        def counted_launch(*args):
-            out = launch(*args)
-            _count_launch("toi")
-            return out
+        def counting(launch, name):
+            def counted_launch(*args):
+                out = launch(*args)
+                _count_launch(name)
+                return out
+            return counted_launch
 
-        counted_call.counted = counted_launch.counted = True
-        sm._call, ktoi._launch = counted_call, counted_launch
+        counted_call.counted = True
+        sm._call = counted_call
+        ktoi._launch = counting(ktoi._launch, "toi")
+        coloring._launch = counting(coloring._launch, "color_walk")
     with _LAUNCH_LOCK:
         _LAUNCHES.update(dict.fromkeys(COUNTED, 0))
 
@@ -2758,6 +2778,73 @@ def sharded_path(dev, refs=None):
     return paths
 
 
+def coloring_kernel(dev):
+    """21: K7 on 512 x pyramid(20)'s recorded colorings and on the
+    tumbler's; held to `_luby` bit for bit, counted and timed. Returns the
+    launches of each roll, counted from 0 before it, K7's largest
+    difference to `_luby` (0: the phase raises on any), its times
+    (`measure`), `_luby`'s ms and the bound."""
+    import torch
+    from box2d_mt_tpu_torch import trace
+    from box2d_mt_tpu_torch.ops import coloring
+    from box2d_mt_tpu_torch.ops.sync import HostSyncs
+    plain_color = coloring.color_constraints
+    calls, paths = [], {}
+
+    def recorded(*args, **kwargs):
+        calls.append(args[:7])
+        return plain_color(*args, **kwargs)
+
+    for label, states, n_steps in (("512 x pyramid(20)", batch(20, 512, dev), 60),
+                                   ("256 x tumbler(200)",
+                                    joint_batch("tumbler", 200, 256, dev), 30)):
+        coloring.color_constraints = recorded
+        sync(dev)
+        zero_launches()
+        try:
+            with trace.collect() as c:
+                roll(states, n_steps)
+        finally:
+            coloring.color_constraints = plain_color
+        sync(dev)
+        launches = paths[f"phase 21 {label} x {n_steps}"] = read_launches()
+        ev = c.events
+        print(f"phase 21 {label} x {n_steps}: K7 launches {launches['color_walk']}, "
+              f"coloring.kernel {ev['coloring.kernel']}, "
+              f"coloring.runs {ev['coloring.runs']}, host reads a step "
+              f"{c.host_syncs / c.steps:.3f}, reads in b2.coloring "
+              f"{c.reads.get('b2.coloring', 0)}")
+        if ev["coloring.kernel"] < max(1, ev["coloring.runs"]):
+            raise AssertionError(f"{label}: a coloring missed K7: {ev}")
+        if launches["color_walk"] != ev["coloring.kernel"]:
+            raise AssertionError(f"{label}: {launches['color_walk']} K7 launches, "
+                                 f"coloring.kernel {ev['coloring.kernel']}")
+        if label.startswith("512"):
+            main_calls, calls[:] = list(calls), []
+    args = max(main_calls, key=lambda a: int(a[4].sum()))
+    (ba, bb, dyn_a, dyn_b, active, n, _), lanes = args, args[:5]
+    w, k = ba.shape
+    print(f"phase 21 the busiest coloring: {w} worlds, K = {k}, N = {n}, "
+          f"{int(active.sum()) / w:.1f} active slots a world")
+    for mc in (16, 3):
+        got = coloring.color_walk(*lanes, n, mc)
+        want = coloring._luby(*lanes, n, mc, HostSyncs())
+        sync(dev)
+        for x, y, name in zip(got, want, ("color", "overflow", "rank")):
+            if not torch.equal(x, y):
+                raise AssertionError(f"K7 != _luby in {name} at max_colors={mc}")
+        print(f"phase 21 K7 == _luby at max_colors={mc}: colors used "
+              f"{int(got[0].max()) + 1}, overflow slots {int(got[1].sum())}")
+    m = measure(lambda *a: coloring.color_walk(*a, n, 16), lanes)
+    plain = time_call(lambda *a: coloring._luby(*a, n, 16, HostSyncs()), lanes, reps=3)
+    n_bytes = w * k * (2 * 8 + 3 + 2 * 4) + w * 4
+    bnd = bound(n_bytes, 0)
+    print(f"phase 21 K7 [{w} x K {k} x N {n}]: {show(m, n_bytes)}; plain _luby "
+          f"{plain:.3f} ms (events around eager calls); bound {bnd[0]:.5f} ms ({bnd[1]}, "
+          f"{n_bytes / 1e6:.2f} MB), {100 * bnd[0] / m['ms']:.2f}% of it")
+    return paths, 0.0, m, plain, bnd
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2784,6 +2871,7 @@ def main() -> int:
     # the build and phase 18 or 19 alone, or both
     only1819 = [a[-2:] for a in sys.argv[1:] if a in ("--phase18", "--phase19")]
     only20 = sys.argv[1:] == ["--phase20"]        # the build and phase 20 alone
+    only21 = sys.argv[1:] == ["--phase21"]        # the build and phase 21 alone
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2811,6 +2899,10 @@ def main() -> int:
     if only20:
         sharded_path(dev)
         lap(20)
+        return 0
+    if only21:
+        coloring_kernel(dev)
+        lap(21)
         return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
@@ -2863,7 +2955,7 @@ def main() -> int:
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi")
+    launches = read_launches("solve_middle", "toi", "color_walk")
     b = states.bodies
     dyn = b.body_type == 2
     if min(launches.values()) <= 0:
@@ -3143,6 +3235,9 @@ def main() -> int:
     paths20 = sharded_path(dev, refs={"pyramid": pyramid_ref, "car": car_ref})
     del pyramid_ref, car_ref
     lap(20)
+    # ---- 21. the coloring kernel K7
+    paths21, *k7 = coloring_kernel(dev)
+    lap(21)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
@@ -3154,11 +3249,13 @@ def main() -> int:
     paths.update(paths17)
     paths.update(paths1819)
     paths.update(paths20)
+    paths.update(paths21)
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),
             ("toi", err_k2, k2_m, k2_plain, k2_bound, None),
-            *((name, err_sw[name], *sw[name]) for name in SANDWICH_NAMES)):
+            *((name, err_sw[name], *sw[name]) for name in SANDWICH_NAMES),
+            ("color_walk", *k7, None)):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         record.append(dict(name=name, **KERNELS[name], launches=sum(by_path.values()),
                            launches_by_path=by_path, max_abs_err=err, ms=m["ms"],

@@ -29,7 +29,16 @@ solve middle of 8 x sphere_stack(10) at a step whose solved lanes include
 circle-circle (e_circles) manifolds, and K2 the lanes of fast circles
 thrown at a static circle, a thin static box and an edge, where every
 proxy B has one vertex and each lane runs several conservative-advancement
-trips, its GJK warm-started from the previous trip's simplex."""
+trips, its GJK warm-started from the previous trip's simplex.
+The coloring kernel K7 equals the Luby tier's plain version (`_luby`) bit
+for bit in color, rank and overflow: on seeded random batches (static
+bodies, inactive slots, self-loops) at 1 and 512 worlds, 1 to 2048 slots,
+64 to 1000 bodies (and 12000, past the default 48 KB of shared memory,
+and 60000, past a block's shared memory, where the walk keeps its state in
+global memory) and 1 to 32 colors, and on the colorings of the rolled
+pyramids at 16 colors and at 3, where they overflow; `color_constraints`
+launches it for every batch of the Luby tier on a card. Its wrapper's
+argument checks run on the CPU too."""
 
 import collections
 import contextlib
@@ -44,9 +53,11 @@ import torch
 
 from box2d_mt_tpu_torch import settings, shapes
 from box2d_mt_tpu_torch.models import scenes
+from box2d_mt_tpu_torch.ops import coloring
 from box2d_mt_tpu_torch.ops import solve_middle as sm
 from box2d_mt_tpu_torch.ops import toi as ktoi
 from box2d_mt_tpu_torch.ops.integrate import integrate_positions
+from box2d_mt_tpu_torch.ops.sync import HostSyncs
 from box2d_mt_tpu_torch.state import replicate
 from box2d_mt_tpu_torch.world import WorldBuilder, step_batched
 
@@ -57,9 +68,10 @@ DT = 1.0 / 60.0
 def launched():
     """Counts the CUDA launches the block makes, by the C entry point each
     goes through: ops/solve_middle.py's `_call` by its entry's name (K1,
-    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2)."""
+    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2), ops/coloring.py's
+    `_launch` as "color_launch" (K7)."""
     ran = collections.Counter()
-    call, launch = sm._call, ktoi._launch
+    call, launch, color_launch = sm._call, ktoi._launch, coloring._launch
 
     def counted_call(name, *args, **kwargs):
         out = call(name, *args, **kwargs)
@@ -71,11 +83,17 @@ def launched():
         ran["toi_launch"] += 1
         return out
 
-    sm._call, ktoi._launch = counted_call, counted_launch
+    def counted_color_launch(*args):
+        out = color_launch(*args)
+        ran["color_launch"] += 1
+        return out
+
+    sm._call, ktoi._launch, coloring._launch = (counted_call, counted_launch,
+                                                 counted_color_launch)
     try:
         yield ran
     finally:
-        sm._call, ktoi._launch = call, launch
+        sm._call, ktoi._launch, coloring._launch = call, launch, color_launch
 
 
 @pytest.fixture(scope="module")
@@ -692,3 +710,151 @@ def test_solve_middle_kernel_matches_plain_on_circles():
     torch.testing.assert_close(k_aux[:, :4], p_aux[:, :4], rtol=0, atol=1e-4)
     slop = -3.0 * settings.LINEAR_SLOP
     assert torch.equal(k_aux[:, 4] >= slop, p_aux[:, 4] >= slop)
+
+
+# ---- K7: the constraint coloring, Luby tier
+
+
+def _color_graphs(w, k, n, seed, device):
+    """W random worlds of K slots over N bodies: ~20% static bodies, ~20%
+    inactive slots, ~5% self-loops (body_a == body_b)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n, (w, k))
+    b = rng.integers(0, n, (w, k))
+    loop = rng.random((w, k)) < 0.05
+    b[loop] = a[loop]
+    dynamic = rng.random((w, n)) >= 0.2
+    graph = (a, b, np.take_along_axis(dynamic, a, 1), np.take_along_axis(dynamic, b, 1),
+             rng.random((w, k)) >= 0.2)
+    return tuple(torch.from_numpy(x).to(device) for x in graph)
+
+
+def _same_as_luby(args, n, max_colors):
+    """K7 against `_luby` on the same card tensors: color, rank and
+    overflow bit-equal. Returns the overflow."""
+    with launched() as ran:
+        color, overflow, rank = coloring.color_walk(*args, n, max_colors)
+    want = coloring._luby(*args, n, max_colors, HostSyncs())
+    torch.cuda.synchronize()
+    assert ran == {"color_launch": 1}
+    assert color.dtype == rank.dtype == overflow.dtype == torch.int32
+    for got, plain, name in zip((color, overflow, rank), want,
+                                ("color", "overflow", "rank")):
+        assert torch.equal(got, plain), (name, n, max_colors)
+    return overflow
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 256, 1000])
+@pytest.mark.parametrize("k", [1, 256, 1024, 2048])
+@pytest.mark.parametrize("w", [1, 512])
+def test_coloring_kernel_matches_luby(w, k, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    args = _color_graphs(w, k, n, seed=w * 7919 + k * 31 + n, device="cuda")
+    for max_colors in (1, 3, 16, 32):
+        overflow = _same_as_luby(args, n, max_colors)
+        if max_colors == 1:
+            assert torch.equal(overflow, args[-1].sum(1, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [12000, 60000], ids=["past_default", "past_block"])
+def test_coloring_kernel_matches_luby_past_shared_memory(n):
+    """12000 bodies: 64.5 KB of shared memory a world, past the 48 KB a
+    launch gets without asking; 60000: 248 KB, past the 227 KB a block may
+    take, so the walk keeps its endpoints and body masks in global memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    args = _color_graphs(2, 2048, n, seed=n, device="cuda")
+    for max_colors in (3, 32):
+        _same_as_luby(args, n, max_colors)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_colors", [16, 3], ids=["colors", "overflow"])
+def test_coloring_kernel_matches_luby_on_rolled_pyramids(rolled, max_colors):
+    """The step's own colorings: the step launches K7 once, and K7 equals
+    `_luby` on its arguments."""
+    states = dataclasses.replace(rolled, cache=dataclasses.replace(
+        rolled.cache, valid=torch.zeros_like(rolled.cache.valid)))
+    got = []
+    plain = coloring.color_constraints
+
+    def capture(*args, **kwargs):
+        got.append((args, kwargs))
+        return plain(*args, **kwargs)
+
+    coloring.color_constraints = capture
+    try:
+        with launched() as ran:
+            _, ev = step_batched(states, DT, continuous=False, max_colors=max_colors)
+    finally:
+        coloring.color_constraints = plain
+    assert len(got) == 1 and ran["color_launch"] == 1
+    (ba, bb, dyn_a, dyn_b, active, n, mc), _ = got[0]
+    assert mc == max_colors and int(active.sum()) > 0
+    overflow = _same_as_luby((ba, bb, dyn_a, dyn_b, active), n, max_colors)
+    assert torch.equal(overflow, ev.color_overflow.to(torch.int32))
+    assert (int(overflow.min()) > 0) == (max_colors == 3)
+
+
+@pytest.mark.gpu
+def test_coloring_dispatch_launches_on_every_luby_batch():
+    """`color_constraints` takes K7 for every batch of at most 2048 slots
+    on a card, a world past a block's shared memory included,
+    Jones-Plassmann above 2048 slots and `_luby` on the CPU; the event
+    "coloring.kernel" counts the launches. A card refuses more than 32
+    colors, as Jones-Plassmann does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    for w, k, n, device, launches in ((4, 1024, 256, "cuda", 1),
+                                      (1, 2048, 60000, "cuda", 1),
+                                      (2, 2049, 256, "cuda", 0),
+                                      (4, 1024, 256, "cpu", 0)):
+        args = _color_graphs(w, k, n, seed=k + n, device=device)
+        syncs = HostSyncs()
+        with launched() as ran:
+            color, overflow, rank = coloring.color_constraints(
+                *args, n, 16, with_rank=True, syncs=syncs)
+        assert ran["color_launch"] == launches
+        assert syncs.events.get("coloring.kernel", 0) == launches
+        assert (syncs.count == 0) == (launches == 1)        # no host read
+        if k <= 2048:
+            want = coloring._luby(*args, n, 16, HostSyncs())
+            for got, plain in zip((color, overflow, rank), want):
+                assert torch.equal(got, plain)
+    syncs = HostSyncs()
+    with pytest.raises(ValueError, match="max_colors=33"), launched() as ran:
+        coloring.color_constraints(*_color_graphs(1, 64, 16, seed=1, device="cuda"), 16, 33,
+                                   syncs=syncs)
+    assert ran["color_launch"] == 0 and "coloring.kernel" not in syncs.events
+
+
+def test_coloring_wrapper_checks_arguments():
+    """K7's wrapper refuses malformed arguments before any launch: dtype,
+    shape, device and contiguity of each tensor, colors and worlds past
+    the kernel, and CPU tensors."""
+    args = [torch.zeros(2, 8, dtype=torch.int64), torch.ones(2, 8, dtype=torch.int64),
+            torch.ones(2, 8, dtype=torch.bool), torch.ones(2, 8, dtype=torch.bool),
+            torch.ones(2, 8, dtype=torch.bool)]
+
+    def refused(match, bad, n=4, max_colors=16):
+        with pytest.raises(ValueError, match=match):
+            coloring.color_walk(*bad, n, max_colors)
+
+    def replaced(i, t):
+        return args[:i] + [t] + args[i + 1:]
+
+    names = ("body_a", "body_b", "conflict_a", "conflict_b", "active")
+    for i, name in enumerate(names):
+        t = args[i]
+        refused(f"{name} must be torch.", replaced(i, t.to(torch.int32)))
+        refused("contiguous", replaced(i, t.t().contiguous().t()))
+        if i:
+            refused(f"{name} must be torch.*shape \\(2, 8\\)", replaced(i, t[:, :7].clone()))
+            refused(f"{name} is on meta", replaced(i, t.to("meta")))
+    refused("body_a must be \\(W, K\\)", replaced(0, args[0][0]))
+    refused("max_colors", args, max_colors=0)
+    refused("max_colors", args, max_colors=33)
+    refused("CUDA tensors", args)

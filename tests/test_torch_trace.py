@@ -156,6 +156,7 @@ def test_counters_equal_the_counts_of_wrappers(start, monkeypatch):
     with trace.collect() as counts:
         _, syncs = _roll(start, toi=counted_toi)
     assert counts.events == {"coloring.runs": calls["coloring"],
+                             "coloring.kernel": 0,
                              "pairs.refreshes": calls["post_solve_pairs"],
                              "toi.rounds": calls["toi"]}
     assert min(calls.values()) > 0, calls
@@ -213,7 +214,8 @@ def test_collectors_add_exactly_under_threads():
         sys.setswitchinterval(interval)
     n = n_threads * 2000
     assert inner.as_dict() == {"steps": n, "host_syncs": n, "reads": {"b2.step": n},
-                               "events": {"coloring.runs": 0, "pairs.refreshes": 0,
+                               "events": {"coloring.runs": 0, "coloring.kernel": 0,
+                                          "pairs.refreshes": 0,
                                           "toi.rounds": n}}
     assert outer.steps == n + 1
     trace.merge(syncs)          # no collector open: nothing to add to
