@@ -19,6 +19,7 @@ import torch
 from .. import settings
 from ..math2d import take
 from .narrowphase import KIND_INVALID, contact_kind, needs_swap
+from .sync import HostSyncs
 
 # all-pairs serves worlds up to this fixture capacity (as in the JAX package)
 GRID_THRESHOLD = 1024
@@ -395,7 +396,7 @@ def _grid(fx, bodies, jkeys, capacity, cell_slots, large_cap, spread, state=None
 
 
 def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int = 16,
-                    spread: bool = False, filter_fn=None):
+                    spread: bool = False, filter_fn=None, syncs: HostSyncs = None):
     """Uniform-grid-hash pair finder for large worlds (the JAX package's
     `find_pairs_grid`, the analog of b2DynamicTreeOfTrees' sparse grid of
     sub-trees, Box2D/MT/b2DynamicTreeOfTrees.h:30-46), batched over worlds:
@@ -408,7 +409,10 @@ def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int =
     buckets of `cell_slots` slots (by the hash's low bits as in the JAX
     package, or its high bits with `spread`). Dropped bucket entries and
     large fixtures are counted in the overflow. `filter_fn` sees (states,
-    fi, fj) with fi, fj (W, M) candidate fixture indices. No host read."""
+    fi, fj) with fi, fj (W, M) candidate fixture indices. No host read; a
+    call is the event "pairs.grid" in `syncs`."""
+    if syncs is not None:
+        syncs.event("pairs.grid")
     fx, bd = state.fixtures, state.bodies
     nw, nf = fx.body.shape
     per_world = nf * 4 * cell_slots + min(large_cap, nf) * nf
@@ -422,15 +426,16 @@ def find_pairs_grid(state, capacity: int, cell_slots: int = 32, large_cap: int =
     return (*_role_order(fx, i_sel, j_sel, valid), overflow)
 
 
-def find_pairs(state, capacity: int, filter_fn=None):
+def find_pairs(state, capacity: int, filter_fn=None, syncs: HostSyncs = None):
     """Strategy dispatch on the static fixture capacity, as in the JAX
     package: all-pairs up to GRID_THRESHOLD slots, the grid hash above,
     here spread over its buckets with GRID_CELL_SLOTS slots each. Both
-    consult the optional `filter_fn` contact-filter hook."""
+    consult the optional `filter_fn` contact-filter hook; the grid's calls
+    are counted in `syncs`."""
     if state.fixtures.capacity <= GRID_THRESHOLD:
         return find_pairs_allpairs(state, capacity, filter_fn)
     return find_pairs_grid(state, capacity, cell_slots=GRID_CELL_SLOTS, spread=True,
-                           filter_fn=filter_fn)
+                           filter_fn=filter_fn, syncs=syncs)
 
 
 def carry_over_contacts(old, f_a, f_b, nf: int):

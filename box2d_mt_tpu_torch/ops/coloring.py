@@ -46,7 +46,8 @@ def color_constraints(body_a, body_b, conflict_a, conflict_b, active,
     endpoints), active (W, K) bool. Returns (color (W, K) i32 with -1 for
     inactive, overflow (W,) i32) and with `with_rank` the rank of each
     constraint within its color in slot order. A launch of K7 is the
-    event "coloring.kernel" in `syncs`."""
+    event "coloring.kernel" in `syncs`, a round of Jones-Plassmann the
+    event "coloring.jp_rounds"."""
     syncs = syncs or HostSyncs()
     k = body_a.shape[1]
     if k > LUBY_MAX_SLOTS:
@@ -177,6 +178,7 @@ def _jones_plassmann(body_a, body_b, conflict_a, conflict_b, active,
     mask = torch.zeros((nw, nb1), dtype=torch.int64, device=dev)
     r = 0
     while r < k and syncs.flag(remaining.any()):
+        syncs.event("coloring.jp_rounds")
         key = torch.where(remaining, hprio, big)
         mins = torch.full((nw, nb1), big, dtype=torch.int64, device=dev)
         mins.scatter_reduce_(1, idx_ab,

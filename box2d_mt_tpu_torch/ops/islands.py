@@ -4,9 +4,12 @@ Port of `box2d_mt_tpu.ops.islands` (reference: b2World.cpp:1207-1330,
 b2Island.cpp:355-395). Labels are the minimum body index of each island
 of non-static bodies joined by active edges, found by min-label
 propagation with pointer jumping. The JAX package computes the same
-labels for N <= 256 by a boolean transitive closure on the matrix unit;
-here propagation runs to its fixed point for those sizes, and keeps the
-JAX package's round cap for larger worlds.
+labels for N <= 256 by a boolean transitive closure on the matrix unit,
+and above by propagation capped at its settings.ISLAND_ROUNDS (16); here
+propagation runs to its fixed point for every N, so that an island is
+whole as b2World::Solve's depth-first search makes it. The cap cuts the
+labels of a 2800-box pile (multithread_demo) for some steps of its
+settling, and sleep is decided island by island.
 """
 
 import torch
@@ -19,17 +22,15 @@ BIGI = torch.iinfo(torch.int32).max
 
 
 def island_labels(n_bodies: int, edges_a, edges_b, edge_active,
-                  body_connectable, syncs: HostSyncs = None,
-                  rounds: int = settings.ISLAND_ROUNDS):
+                  body_connectable, syncs: HostSyncs = None):
     """Connected-component labels over non-static bodies.
 
     edges_a/b (W, E) i32 endpoint slots, edge_active (W, E) bool,
     body_connectable (W, N) bool. Returns (W, N) i32 labels;
-    unconnectable bodies keep their own index. Each propagation round
-    reads one host predicate (counted in `syncs`)."""
+    unconnectable bodies keep their own index. Propagation runs until a
+    round changes no label; each round reads one host predicate (counted
+    in `syncs`) and is the event "islands.rounds"."""
     syncs = syncs or HostSyncs()
-    if n_bodies <= 256:
-        rounds = None                      # closure semantics: to the fixed point
     nw = edges_a.shape[0]
     dev = edges_a.device
     ea = edges_a.clamp(0, n_bodies - 1).long()
@@ -40,8 +41,8 @@ def island_labels(n_bodies: int, edges_a, edges_b, edge_active,
     dump = torch.full_like(ea, n_bodies)
     scat = torch.cat([torch.where(link, ea, dump), torch.where(link, eb, dump)], 1)
     labels = torch.arange(n_bodies, dtype=torch.int32, device=dev).expand(nw, -1)
-    r = 0
-    while rounds is None or r < rounds:
+    changed = True
+    while changed:
         m = torch.minimum(take(labels, ea), take(labels, eb))
         mins = torch.full((nw, n_bodies + 1), BIGI, dtype=torch.int32, device=dev)
         mins.scatter_reduce_(1, scat, torch.cat([m, m], 1), "amin")
@@ -50,10 +51,8 @@ def island_labels(n_bodies: int, edges_a, edges_b, edge_active,
         new = take(new, new.long())
         new = take(new, new.long())
         changed = syncs.flag((new != labels).any())
+        syncs.event("islands.rounds")
         labels = new
-        r += 1
-        if not changed:
-            break
     return labels.contiguous()
 
 

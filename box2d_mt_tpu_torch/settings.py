@@ -65,9 +65,6 @@ ANGULAR_SLEEP_TOLERANCE = 2.0 / 180.0 * math.pi
 # that fail to color within this budget fall into the final color and are
 # solved with averaged (Jacobi) impulses; diagnostics report overflow.
 MAX_COLORS = 24
-# Default label-propagation rounds for island discovery (each round doubles
-# reach via pointer jumping, so 16 covers any practical island diameter).
-ISLAND_ROUNDS = 16
 
 # Body type codes (reference: b2Body.h:40-45 enum b2BodyType).
 STATIC_BODY = 0

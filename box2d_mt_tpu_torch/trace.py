@@ -33,8 +33,15 @@ each span and the step's events:
     coloring.kernel   color_constraints launched K7 (csrc/coloring.cu), the
                       joints' colorings included: on a card, every coloring
                       of at most 2048 slots; on the CPU, none
+    coloring.jp_rounds  rounds of the Jones-Plassmann tier (more than 2048
+                      slots), one host read each
+    islands.rounds    propagation rounds of ops.islands.island_labels, one
+                      host read each
     pairs.refreshes   the post-solve ran find_pairs: a fixture left its
                       fat AABB in some world
+    pairs.grid        the step's calls of ops.broadphase.find_pairs_grid
+                      (above 1024 fixture slots): the pair refresh, and the
+                      start-of-step pass over the worlds a mutation marked
     toi.rounds        calls of the time-of-impact entry (K2)
 
 Counting costs one check a step while no collector is open; the counts
@@ -61,7 +68,8 @@ phase that the next host reads are put to.
 import contextlib
 import threading
 
-EVENTS = ("coloring.runs", "coloring.kernel", "pairs.refreshes", "toi.rounds")
+EVENTS = ("coloring.runs", "coloring.kernel", "coloring.jp_rounds", "islands.rounds",
+          "pairs.refreshes", "pairs.grid", "toi.rounds")
 
 
 class Counts:

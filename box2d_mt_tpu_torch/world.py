@@ -565,7 +565,7 @@ def _post_solve_b(states: State, pre: _PreSolve, dt: float, allow_sleep,
     if syncs.flag(refresh.any()):
         syncs.event("pairs.refreshes")
         with syncs.span("pair_refresh"):
-            f_a, f_b, overflow = broadphase.find_pairs(state_mid, nc, filter_fn)
+            f_a, f_b, overflow = broadphase.find_pairs(state_mid, nc, filter_fn, syncs)
             pair_overflow = torch.where(refresh, overflow, 0)
             # identity gate: a world whose pair list is unchanged keeps its
             # table
@@ -1385,7 +1385,7 @@ def _step_batched(states: State, dt: float, velocity_iterations,
             # between-step mutations: pairs are found at the START of Step
             # (e_newFixture -> FindNewContacts, b2World.cpp:1628-1639), in
             # the worlds a mutation marked
-            f_a, f_b, _ = broadphase.find_pairs(states, nc, filter_fn)
+            f_a, f_b, _ = broadphase.find_pairs(states, nc, filter_fn, syncs)
             states = dataclasses.replace(states, contacts=where_worlds(
                 states.pairs_dirty,
                 broadphase.carry_over_contacts(states.contacts, f_a, f_b, nf),

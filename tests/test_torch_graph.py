@@ -1,6 +1,8 @@
 """Island labels and constraint colors of the port are EQUAL to the JAX
 package's on seeded random graphs, in both tiers of each pass: labels by
-closure (N <= 256) and by capped propagation (N > 256), colors by Luby
+closure (N <= 256) and by propagation (N > 256: the JAX package's stops
+at 16 rounds, the port's at its fixed point, which these graphs reach
+within 16), colors by Luby
 maximal sets (K <= 2048) and by bitmask Jones-Plassmann (K > 2048). The
 Luby tier also equals a first-fit walk in slot order, the plain statement
 of the card's coloring kernel K7."""

@@ -155,10 +155,16 @@ def test_counters_equal_the_counts_of_wrappers(start, monkeypatch):
     monkeypatch.setattr(world, "_post_solve_b", marked_post_solve)
     with trace.collect() as counts:
         _, syncs = _roll(start, toi=counted_toi)
+    # every label pass runs to its fixed point below 257 bodies, one read a
+    # round past the label cache's test of each step; no grid, no JP tier
     assert counts.events == {"coloring.runs": calls["coloring"],
                              "coloring.kernel": 0,
+                             "coloring.jp_rounds": 0,
+                             "islands.rounds": counts.reads["b2.islands"] - STEPS,
                              "pairs.refreshes": calls["post_solve_pairs"],
+                             "pairs.grid": 0,
                              "toi.rounds": calls["toi"]}
+    assert counts.events["islands.rounds"] > 0
     assert min(calls.values()) > 0, calls
     assert counts.steps == STEPS
     assert sum(counts.reads.values()) == counts.host_syncs == syncs
@@ -215,7 +221,8 @@ def test_collectors_add_exactly_under_threads():
     n = n_threads * 2000
     assert inner.as_dict() == {"steps": n, "host_syncs": n, "reads": {"b2.step": n},
                                "events": {"coloring.runs": 0, "coloring.kernel": 0,
-                                          "pairs.refreshes": 0,
+                                          "coloring.jp_rounds": 0, "islands.rounds": 0,
+                                          "pairs.refreshes": 0, "pairs.grid": 0,
                                           "toi.rounds": n}}
     assert outer.steps == n + 1
     trace.merge(syncs)          # no collector open: nothing to add to
