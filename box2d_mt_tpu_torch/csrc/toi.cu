@@ -699,3 +699,598 @@ extern "C" int toi_launch(const float* verts_a, const int* count_a, const float*
 
 // the grid for n lanes: returns the blocks and writes each block's span
 extern "C" int toi_grid(int n_lanes, int* span) { return grid(n_lanes, span); }
+
+// ---- K8: toi_substep_kernel ------------------------------------------------
+//
+// The passes of a TOI sub-step (b2Island::SolveTOI, b2Island.cpp:385-523),
+// one thread a lane, in one launch: 20 position passes at TOI_BAUMGARTE
+// (b2ContactSolver::SolveTOIPositionConstraints, b2ContactSolver.cpp:
+// 780-806), the velocity constraints at the solved pose without warm start
+// (the constructor and InitializeVelocityConstraints, :142-249) and the
+// velocity iterations (:293-603), the lane's mini-island neighbors
+// included. It replaces no TPU kernel: the JAX package runs these passes as
+// XLA ops inside `_solve_toi_b` (box2d_mt_tpu/world.py:981-1946). The
+// argument contract and the plain PyTorch version it is held against
+// (`toi_substep_passes_plain`: eager operations over all lanes at once, the
+// neighbors rank by rank) are in ops/toi.py; this code runs the same
+// arithmetic in the same order, built with --fmad=false, so the two agree
+// to the bit on a card.
+//
+// Why one thread a lane does it all: the selected pairs of a round are
+// disjoint on their non-static bodies, and a neighbor constraint moves only
+// its parent lane's TOI body in the position passes (its other endpoint
+// has zero mass there and sits at its tentative advance) and carries its
+// own copy of the other endpoint's velocity in the velocity passes. So a
+// lane's passes read nothing another lane writes: the lane applies its own
+// constraint, then its kept neighbors in slot order (the plain version's
+// ranks), pass after pass, with both bodies' pose in registers. Its
+// neighbors' velocity data is recomputed at each iteration from their
+// rows (the same bits each time) rather than kept, since their number is
+// the data's. Nothing is read back to the host: a lane's neighbors come
+// as a span of `nb_order`.
+//
+// What bounds it on an H100: latency. A solved lane's chain is 20 passes of
+// two points (two sincosf and ~60 dependent operations a point) and the
+// velocity iterations; the bytes (121 B a lane, 92 more a solved one, 176
+// a kept neighbor: chip_smoke.py `substep_bytes`) are tiny. A lane that is
+// not solved and keeps no neighbor copies its inputs out; a neighbor no
+// lane keeps gets zero impulses and its own velocity from the thread of
+// its index.
+
+namespace {
+
+constexpr int kSubstepThreads = 128;
+// box2d_mt_tpu_torch/settings.py, rounded to float as the Python side does
+constexpr float kToiBaumgarte = 0.75f;
+constexpr float kMaxLinearCorrection = 0.2f;
+constexpr float kVelocityThreshold = 1.0f;
+constexpr int kFaceA = 1;
+constexpr int kFaceB = 2;
+
+struct SubstepArgs {
+  // lanes: L of them
+  const uint8_t* solve;
+  const int* kind;         // (2, L) manifold type, point count
+  const float* manifold;   // (8, L) local point, local normal, points 0 and 1
+  const float* body;       // (10, L) inverse masses a, b, inertias a, b, centers, radii
+  const float* material;   // (3, L) friction, restitution, tangent speed
+  const float* pose;       // (6, L) c_a, a_a, c_b, a_b
+  const float* vel;        // (6, L) v_a, w_a, v_b, w_b
+  const int* nb_span;      // (2, L) first kept neighbor in nb_order, their count
+  // neighbors: N of them
+  const int* nb_parent;    // (N,) the parent lane of a kept neighbor, -1 otherwise
+  const int* nb_order;     // (N,) neighbor indices by (parent lane, slot)
+  const int* nb_kind;      // (4, N) manifold type, point count, TOI body is A, parent side A
+  const float* nb_manifold;  // (8, N)
+  const float* nb_body;    // (14, N) position masses (4), velocity masses (4), centers, radii
+  const float* nb_material;  // (3, N)
+  const float* nb_other;   // (6, N) the other endpoint: c, a at its advance, v, w
+  float* pose_out;         // (6, L)
+  float* vel_out;          // (6, L)
+  float* imp_out;          // (4, L) normal 0, 1, tangent 0, 1
+  float* nb_imp_out;       // (4, N)
+  float* nb_vel_out;       // (3, N) the other endpoint's velocity copy
+  int n_lanes, n_nb, passes, iterations;
+};
+
+// A contact's manifold and constants, with the inverse masses of the pass
+// at hand.
+struct Contact {
+  int type, count;
+  float lpx, lpy, lnx, lny, mpx[2], mpy[2];
+  float ma, mb, ia, ib;
+  float lcax, lcay, lcbx, lcby, ra, rb;
+  float fr, rest, ts;
+};
+
+// Velocity-constraint data (velocity_contact_math_s's arguments after the
+// masses).
+struct VelCon {
+  float nx, ny, rax[2], ray[2], rbx[2], rby[2], nm[2], tm[2], bias[2];
+  float k11, k12, k22, nm11, nm12, nm22;
+  int pc;
+};
+
+__device__ __forceinline__ void load_manifold(Contact& k, const float* rows, int n, int i) {
+  k.lpx = rows[i];
+  k.lpy = rows[n + i];
+  k.lnx = rows[2 * n + i];
+  k.lny = rows[3 * n + i];
+  k.mpx[0] = rows[4 * n + i];
+  k.mpy[0] = rows[5 * n + i];
+  k.mpx[1] = rows[6 * n + i];
+  k.mpy[1] = rows[7 * n + i];
+}
+
+__device__ Contact lane_contact(const SubstepArgs& A, int i) {
+  const int n = A.n_lanes;
+  Contact k;
+  k.type = A.kind[i];
+  k.count = A.kind[n + i];
+  load_manifold(k, A.manifold, n, i);
+  const float* b = A.body;
+  k.ma = b[i];
+  k.mb = b[n + i];
+  k.ia = b[2 * n + i];
+  k.ib = b[3 * n + i];
+  k.lcax = b[4 * n + i];
+  k.lcay = b[5 * n + i];
+  k.lcbx = b[6 * n + i];
+  k.lcby = b[7 * n + i];
+  k.ra = b[8 * n + i];
+  k.rb = b[9 * n + i];
+  k.fr = A.material[i];
+  k.rest = A.material[n + i];
+  k.ts = A.material[2 * n + i];
+  return k;
+}
+
+// A neighbor's contact with its position-pass masses (only the TOI body
+// moves) or its velocity-pass masses (both endpoints' own).
+__device__ Contact neighbor_contact(const SubstepArgs& A, int id, bool velocity) {
+  const int n = A.n_nb;
+  Contact k;
+  k.type = A.nb_kind[id];
+  k.count = A.nb_kind[n + id];
+  load_manifold(k, A.nb_manifold, n, id);
+  const float* b = A.nb_body + (velocity ? 4 * n : 0);
+  k.ma = b[id];
+  k.mb = b[n + id];
+  k.ia = b[2 * n + id];
+  k.ib = b[3 * n + id];
+  const float* c = A.nb_body + 8 * n;
+  k.lcax = c[id];
+  k.lcay = c[n + id];
+  k.lcbx = c[2 * n + id];
+  k.lcby = c[3 * n + id];
+  k.ra = c[4 * n + id];
+  k.rb = c[5 * n + id];
+  k.fr = A.nb_material[id];
+  k.rest = A.nb_material[n + id];
+  k.ts = A.nb_material[2 * n + id];
+  return k;
+}
+
+// One position pass over both manifold points (position_contact_math_s
+// with _psm_s, same operation order; only the contact's own manifold type
+// is evaluated: the plain version computes all three and selects, and the
+// selected expression is the same). p: c_a, a_a, c_b, a_b.
+__device__ void position_pass(const Contact& k, bool m, float p[6]) {
+  float cax = p[0], cay = p[1], aa = p[2], cbx = p[3], cby = p[4], ab = p[5];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const bool has = m && (j < k.count);
+    float qas, qac, qbs, qbc;
+    sincosf(aa, &qas, &qac);
+    sincosf(ab, &qbs, &qbc);
+    const float pax = cax - (qac * k.lcax - qas * k.lcay);
+    const float pay = cay - (qas * k.lcax + qac * k.lcay);
+    const float pbx = cbx - (qbc * k.lcbx - qbs * k.lcby);
+    const float pby = cby - (qbs * k.lcbx + qbc * k.lcby);
+
+    // b2PositionSolverManifold::Initialize
+    const float clx = k.mpx[j], cly = k.mpy[j];
+    float nx, ny, px, py, sep;
+    if (k.type == kFaceA) {
+      const float pAx = qac * k.lpx - qas * k.lpy + pax;
+      const float pAy = qas * k.lpx + qac * k.lpy + pay;
+      nx = qac * k.lnx - qas * k.lny;
+      ny = qas * k.lnx + qac * k.lny;
+      px = qbc * clx - qbs * cly + pbx;
+      py = qbs * clx + qbc * cly + pby;
+      sep = (px - pAx) * nx + (py - pAy) * ny - k.ra - k.rb;
+    } else if (k.type == kFaceB) {
+      const float nbx = qbc * k.lnx - qbs * k.lny;
+      const float nby = qbs * k.lnx + qbc * k.lny;
+      const float plane_bx = qbc * k.lpx - qbs * k.lpy + pbx;
+      const float plane_by = qbs * k.lpx + qbc * k.lpy + pby;
+      px = qac * clx - qas * cly + pax;
+      py = qas * clx + qac * cly + pay;
+      sep = (px - plane_bx) * nbx + (py - plane_by) * nby - k.ra - k.rb;
+      nx = -nbx;
+      ny = -nby;
+    } else {
+      const float pAx = qac * k.lpx - qas * k.lpy + pax;
+      const float pAy = qas * k.lpx + qac * k.lpy + pay;
+      const float pBx = qbc * k.mpx[0] - qbs * k.mpy[0] + pbx;
+      const float pBy = qbs * k.mpx[0] + qbc * k.mpy[0] + pby;
+      const float dx = pBx - pAx, dy = pBy - pAy;
+      const float dist = sqrtf(dx * dx + dy * dy);
+      nx = dist > 0.0f ? dx / dist : 0.0f;
+      ny = dist > 0.0f ? dy / dist : 0.0f;
+      px = 0.5f * (pAx + pBx);
+      py = 0.5f * (pAy + pBy);
+      sep = dx * nx + dy * ny - k.ra - k.rb;
+    }
+
+    const float r_ax = px - cax, r_ay = py - cay;
+    const float r_bx = px - cbx, r_by = py - cby;
+    const float corr = fminf(fmaxf(kToiBaumgarte * (sep + kLinearSlop),
+                                   -kMaxLinearCorrection), 0.0f);
+    const float rn_a = r_ax * ny - r_ay * nx;
+    const float rn_b = r_bx * ny - r_by * nx;
+    const float kk = k.ma + k.mb + k.ia * rn_a * rn_a + k.ib * rn_b * rn_b;
+    const float impulse = (has && kk > 0.0f) ? -corr / kk : 0.0f;
+    const float ix = impulse * nx, iy = impulse * ny;
+    cax = cax - k.ma * ix;
+    cay = cay - k.ma * iy;
+    aa = aa - k.ia * (r_ax * iy - r_ay * ix);
+    cbx = cbx + k.mb * ix;
+    cby = cby + k.mb * iy;
+    ab = ab + k.ib * (r_bx * iy - r_by * ix);
+  }
+  p[0] = cax;
+  p[1] = cay;
+  p[2] = aa;
+  p[3] = cbx;
+  p[4] = cby;
+  p[5] = ab;
+}
+
+// The velocity constraint of a contact at pose p with velocities v
+// (ops/toi.py `_velocity_prep` over solver.world_manifold, same operation
+// order; the manifold type's own branch only).
+__device__ VelCon velocity_prep(const Contact& k, const float p[6], const float v[6]) {
+  float qas, qac, qbs, qbc;
+  sincosf(p[2], &qas, &qac);
+  sincosf(p[5], &qbs, &qbc);
+  const float pax = p[0] - (qac * k.lcax - qas * k.lcay);
+  const float pay = p[1] - (qas * k.lcax + qac * k.lcay);
+  const float pbx = p[3] - (qbc * k.lcbx - qbs * k.lcby);
+  const float pby = p[4] - (qbs * k.lcbx + qbc * k.lcby);
+
+  // b2WorldManifold::Initialize: the normal and the two points
+  float nx, ny, ptx[2], pty[2];
+  if (k.type == kFaceA) {
+    nx = qac * k.lnx - qas * k.lny;
+    ny = qas * k.lnx + qac * k.lny;
+    const float plx = (qac * k.lpx - qas * k.lpy) + pax;
+    const float ply = (qas * k.lpx + qac * k.lpy) + pay;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float clx = (qbc * k.mpx[j] - qbs * k.mpy[j]) + pbx;
+      const float cly = (qbs * k.mpx[j] + qbc * k.mpy[j]) + pby;
+      const float s = k.ra - ((clx - plx) * nx + (cly - ply) * ny);
+      const float cax = clx + s * nx, cay = cly + s * ny;
+      const float cbx = clx - k.rb * nx, cby = cly - k.rb * ny;
+      ptx[j] = 0.5f * (cax + cbx);
+      pty[j] = 0.5f * (cay + cby);
+    }
+  } else if (k.type == kFaceB) {
+    const float nbx = qbc * k.lnx - qbs * k.lny;
+    const float nby = qbs * k.lnx + qbc * k.lny;
+    const float plx = (qbc * k.lpx - qbs * k.lpy) + pbx;
+    const float ply = (qbs * k.lpx + qbc * k.lpy) + pby;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float clx = (qac * k.mpx[j] - qas * k.mpy[j]) + pax;
+      const float cly = (qas * k.mpx[j] + qac * k.mpy[j]) + pay;
+      const float s = k.rb - ((clx - plx) * nbx + (cly - ply) * nby);
+      const float cbx = clx + s * nbx, cby = cly + s * nby;
+      const float cax = clx - k.ra * nbx, cay = cly - k.ra * nby;
+      ptx[j] = 0.5f * (cax + cbx);
+      pty[j] = 0.5f * (cay + cby);
+    }
+    nx = -nbx;
+    ny = -nby;
+  } else {
+    const float pAx = (qac * k.lpx - qas * k.lpy) + pax;
+    const float pAy = (qas * k.lpx + qac * k.lpy) + pay;
+    const float pBx = (qbc * k.mpx[0] - qbs * k.mpy[0]) + pbx;
+    const float pBy = (qbs * k.mpx[0] + qbc * k.mpy[0]) + pby;
+    const float dx = pBx - pAx, dy = pBy - pAy;
+    const float dd = dx * dx + dy * dy;
+    const float ln = sqrtf(dd);
+    const float ux = ln < kTiny ? 0.0f : dx / ln;
+    const float uy = ln < kTiny ? 0.0f : dy / ln;
+    nx = dd > kEps2 ? ux : 1.0f;
+    ny = dd > kEps2 ? uy : 0.0f;
+    const float cax = pAx + k.ra * nx, cay = pAy + k.ra * ny;
+    const float cbx = pBx - k.rb * nx, cby = pBy - k.rb * ny;
+    ptx[0] = 0.5f * (cax + cbx);
+    pty[0] = 0.5f * (cay + cby);
+    ptx[1] = 0.0f;
+    pty[1] = 0.0f;
+  }
+
+  VelCon c;
+  c.nx = nx;
+  c.ny = ny;
+  const float tx = ny, ty = -nx;
+  const float msum = k.ma + k.mb;
+  float kn[2], rn_a[2], rn_b[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float rax = ptx[j] - p[0], ray = pty[j] - p[1];
+    const float rbx = ptx[j] - p[3], rby = pty[j] - p[4];
+    c.rax[j] = rax;
+    c.ray[j] = ray;
+    c.rbx[j] = rbx;
+    c.rby[j] = rby;
+    rn_a[j] = rax * ny - ray * nx;
+    rn_b[j] = rbx * ny - rby * nx;
+    kn[j] = msum + k.ia * (rn_a[j] * rn_a[j]) + k.ib * (rn_b[j] * rn_b[j]);
+    c.nm[j] = kn[j] > 0.0f ? 1.0f / kn[j] : 0.0f;
+    const float rt_a = rax * ty - ray * tx;
+    const float rt_b = rbx * ty - rby * tx;
+    const float kt = msum + k.ia * (rt_a * rt_a) + k.ib * (rt_b * rt_b);
+    c.tm[j] = kt > 0.0f ? 1.0f / kt : 0.0f;
+    const float dvx = v[3] - v[5] * rby - v[0] + v[2] * ray;
+    const float dvy = v[4] + v[5] * rbx - v[1] - v[2] * rax;
+    const float v_rel = dvx * nx + dvy * ny;
+    c.bias[j] = v_rel < -kVelocityThreshold ? -k.rest * v_rel : 0.0f;
+  }
+  c.k11 = kn[0];
+  c.k22 = kn[1];
+  c.k12 = msum + k.ia * rn_a[0] * rn_a[1] + k.ib * rn_b[0] * rn_b[1];
+  const float det = c.k11 * c.k22 - c.k12 * c.k12;
+  const bool well = c.k11 * c.k11 < 1000.0f * det;
+  c.pc = (k.count == 2 && !well) ? 1 : k.count;
+  const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
+  c.nm11 = inv_det * c.k22;
+  c.nm12 = -inv_det * c.k12;
+  c.nm22 = inv_det * c.k11;
+  return c;
+}
+
+// One velocity iteration of a contact (velocity_contact_math_s, same
+// operation order). v: v_a, w_a, v_b, w_b.
+__device__ void velocity_pass(const VelCon& c, const Contact& k, bool m, float ni[2],
+                              float ti[2], float v[6]) {
+  float vax = v[0], vay = v[1], wa = v[2], vbx = v[3], vby = v[4], wb = v[5];
+  const float nx = c.nx, ny = c.ny, tx = ny, ty = -nx;
+  const float ma = k.ma, mb = k.mb, iA = k.ia, iB = k.ib;
+
+  // friction, point by point (reference order: j = 0 then 1)
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const bool has = m && (j < c.pc);
+    const float dvx = vbx - wb * c.rby[j] - vax + wa * c.ray[j];
+    const float dvy = vby + wb * c.rbx[j] - vay - wa * c.rax[j];
+    const float vt = dvx * tx + dvy * ty - k.ts;
+    float lam = c.tm[j] * (-vt);
+    const float max_f = k.fr * ni[j];
+    const float new_imp = fminf(fmaxf(ti[j] + lam, -max_f), max_f);
+    lam = has ? new_imp - ti[j] : 0.0f;
+    ti[j] = has ? new_imp : ti[j];
+    const float px = lam * tx, py = lam * ty;
+    vax = vax - ma * px;
+    vay = vay - ma * py;
+    wa = wa - iA * (c.rax[j] * py - c.ray[j] * px);
+    vbx = vbx + mb * px;
+    vby = vby + mb * py;
+    wb = wb + iB * (c.rbx[j] * py - c.rby[j] * px);
+  }
+
+  // normal: 1-point scalar path
+  {
+    const bool one_pt = m && c.pc == 1;
+    const float dvx = vbx - wb * c.rby[0] - vax + wa * c.ray[0];
+    const float dvy = vby + wb * c.rbx[0] - vay - wa * c.rax[0];
+    const float vn0 = dvx * nx + dvy * ny;
+    const float lam0 = -c.nm[0] * (vn0 - c.bias[0]);
+    const float new0 = fmaxf(ni[0] + lam0, 0.0f);
+    const float dlam0 = one_pt ? new0 - ni[0] : 0.0f;
+    const float px = dlam0 * nx, py = dlam0 * ny;
+    vax = vax - ma * px;
+    vay = vay - ma * py;
+    wa = wa - iA * (c.rax[0] * py - c.ray[0] * px);
+    vbx = vbx + mb * px;
+    vby = vby + mb * py;
+    wb = wb + iB * (c.rbx[0] * py - c.rby[0] * px);
+    ni[0] = one_pt ? new0 : ni[0];
+  }
+
+  // normal: 2-point block LCP by total enumeration
+  {
+    const bool two_pt = m && c.pc == 2;
+    const float a1 = ni[0], a2 = ni[1];
+    const float dv1x = vbx - wb * c.rby[0] - vax + wa * c.ray[0];
+    const float dv1y = vby + wb * c.rbx[0] - vay - wa * c.rax[0];
+    const float dv2x = vbx - wb * c.rby[1] - vax + wa * c.ray[1];
+    const float dv2y = vby + wb * c.rbx[1] - vay - wa * c.rax[1];
+    const float vn1 = dv1x * nx + dv1y * ny;
+    const float vn2 = dv2x * nx + dv2y * ny;
+    const float b1 = vn1 - c.bias[0] - (c.k11 * a1 + c.k12 * a2);
+    const float b2 = vn2 - c.bias[1] - (c.k12 * a1 + c.k22 * a2);
+
+    const float x1_1 = -(c.nm11 * b1 + c.nm12 * b2);
+    const float x2_1 = -(c.nm12 * b1 + c.nm22 * b2);
+    const bool ok1 = (x1_1 >= 0.0f) && (x2_1 >= 0.0f);
+    const float x1_2 = -c.nm[0] * b1;
+    const float vn2_2 = c.k12 * x1_2 + b2;
+    const bool ok2 = (x1_2 >= 0.0f) && (vn2_2 >= 0.0f);
+    const float x2_3 = -c.nm[1] * b2;
+    const float vn1_3 = c.k12 * x2_3 + b1;
+    const bool ok3 = (x2_3 >= 0.0f) && (vn1_3 >= 0.0f);
+    const bool ok4 = (b1 >= 0.0f) && (b2 >= 0.0f);
+    // "no solution, give up" keeps the accumulated impulse (d = 0)
+    const float x1 = ok1 ? x1_1 : ok2 ? x1_2 : ok3 ? 0.0f : ok4 ? 0.0f : a1;
+    const float x2 = ok1 ? x2_1 : ok2 ? 0.0f : ok3 ? x2_3 : ok4 ? 0.0f : a2;
+
+    const float d1 = two_pt ? x1 - a1 : 0.0f;
+    const float d2 = two_pt ? x2 - a2 : 0.0f;
+    const float p1x = d1 * nx, p1y = d1 * ny;
+    const float p2x = d2 * nx, p2y = d2 * ny;
+    vax = vax - ma * (p1x + p2x);
+    vay = vay - ma * (p1y + p2y);
+    wa = wa - iA * ((c.rax[0] * p1y - c.ray[0] * p1x) + (c.rax[1] * p2y - c.ray[1] * p2x));
+    vbx = vbx + mb * (p1x + p2x);
+    vby = vby + mb * (p1y + p2y);
+    wb = wb + iB * ((c.rbx[0] * p1y - c.rby[0] * p1x) + (c.rbx[1] * p2y - c.rby[1] * p2x));
+    ni[0] = two_pt ? x1 : ni[0];
+    ni[1] = two_pt ? x2 : ni[1];
+  }
+  v[0] = vax;
+  v[1] = vay;
+  v[2] = wa;
+  v[3] = vbx;
+  v[4] = vby;
+  v[5] = wb;
+}
+
+// The neighbor's two endpoints: the TOI body's three values `own`, the
+// other endpoint's `other`; `toi_a` says which endpoint of the neighbor
+// the TOI body is.
+__device__ __forceinline__ void endpoints(bool toi_a, const float own[3], const float other[3],
+                                          float q[6]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    q[r] = toi_a ? own[r] : other[r];
+    q[3 + r] = toi_a ? other[r] : own[r];
+  }
+}
+
+// The TOI body's three values of a lane's six (`side_a`: the lane's
+// endpoint A), and the lane's six plus a change d of the TOI body's, as
+// the plain version's scatter adds it.
+__device__ __forceinline__ void own_of(bool side_a, const float lane[6], float own[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) own[r] = side_a ? lane[r] : lane[3 + r];
+}
+
+__device__ __forceinline__ void add_own(bool side_a, const float d[3], float lane[6]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (side_a) {
+      lane[r] = lane[r] + d[r];
+    } else {
+      lane[3 + r] = lane[3 + r] + d[r];
+    }
+  }
+}
+
+// A kept neighbor's position constraint against the live TOI-body pose
+// (the other endpoint at its tentative advance, with zero mass).
+__device__ void neighbor_position(const SubstepArgs& A, int id, float p[6]) {
+  const int n = A.n_nb;
+  const Contact k = neighbor_contact(A, id, false);
+  const bool toi_a = A.nb_kind[2 * n + id] != 0;
+  const bool side_a = A.nb_kind[3 * n + id] != 0;
+  const float other[3] = {A.nb_other[id], A.nb_other[n + id], A.nb_other[2 * n + id]};
+  float own[3], q[6], d[3];
+  own_of(side_a, p, own);
+  endpoints(toi_a, own, other, q);
+  position_pass(k, true, q);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) d[r] = (toi_a ? q[r] : q[3 + r]) - own[r];
+  add_own(side_a, d, p);
+}
+
+// A kept neighbor's velocity iteration: its constraint at the solved pose
+// p and the velocities before the iterations v0, against the live TOI-body
+// velocity v and its own copy of the other endpoint's velocity.
+__device__ void neighbor_velocity(const SubstepArgs& A, int id, const float p[6],
+                                  const float v0[6], float v[6]) {
+  const int n = A.n_nb;
+  const Contact k = neighbor_contact(A, id, true);
+  const bool toi_a = A.nb_kind[2 * n + id] != 0;
+  const bool side_a = A.nb_kind[3 * n + id] != 0;
+  const float* oth = A.nb_other;
+  const float other_pose[3] = {oth[id], oth[n + id], oth[2 * n + id]};
+  const float other_vel[3] = {oth[3 * n + id], oth[4 * n + id], oth[5 * n + id]};
+  float own[3], q[6], w0[6];
+  own_of(side_a, p, own);
+  endpoints(toi_a, own, other_pose, q);
+  own_of(side_a, v0, own);
+  endpoints(toi_a, own, other_vel, w0);
+  const VelCon c = velocity_prep(k, q, w0);
+
+  float* imp = A.nb_imp_out;
+  float* ovo = A.nb_vel_out;
+  float ni[2] = {imp[id], imp[n + id]}, ti[2] = {imp[2 * n + id], imp[3 * n + id]};
+  const float ov[3] = {ovo[id], ovo[n + id], ovo[2 * n + id]};
+  float u[6], d[3];
+  own_of(side_a, v, own);
+  endpoints(toi_a, own, ov, u);
+  velocity_pass(c, k, true, ni, ti, u);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) d[r] = (toi_a ? u[r] : u[3 + r]) - own[r];
+  add_own(side_a, d, v);
+  imp[id] = ni[0];
+  imp[n + id] = ni[1];
+  imp[2 * n + id] = ti[0];
+  imp[3 * n + id] = ti[1];
+  ovo[id] = toi_a ? u[3] : u[0];
+  ovo[n + id] = toi_a ? u[4] : u[1];
+  ovo[2 * n + id] = toi_a ? u[5] : u[2];
+}
+
+__global__ void __launch_bounds__(kSubstepThreads) toi_substep_kernel(const SubstepArgs A) {
+  const int i = blockIdx.x * kSubstepThreads + threadIdx.x;
+  const int nn = A.n_nb;
+  if (i < nn && A.nb_parent[i] < 0) {
+    // a neighbor no lane keeps: as the plain passes leave it
+#pragma unroll
+    for (int r = 0; r < 4; ++r) A.nb_imp_out[r * nn + i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) A.nb_vel_out[r * nn + i] = A.nb_other[(3 + r) * nn + i];
+  }
+  const int nl = A.n_lanes;
+  if (i >= nl) return;
+  const bool on = A.solve[i] != 0;
+  const int start = A.nb_span[i], count = A.nb_span[nl + i];
+  float p[6], v0[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    p[r] = A.pose[r * nl + i];
+    v0[r] = A.vel[r * nl + i];
+  }
+  float ni[2] = {0.0f, 0.0f}, ti[2] = {0.0f, 0.0f};
+  float v[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) v[r] = v0[r];
+
+  if (on || count > 0) {
+    const Contact k = lane_contact(A, i);
+    // 20 position passes: the lane's constraint, then its kept neighbors
+    for (int pass = 0; pass < A.passes; ++pass) {
+      position_pass(k, on, p);
+      for (int r = 0; r < count; ++r) neighbor_position(A, A.nb_order[start + r], p);
+    }
+    // the velocity solve at the solved pose, without warm start
+    const VelCon c = velocity_prep(k, p, v0);
+    for (int r = 0; r < count; ++r) {
+      const int id = A.nb_order[start + r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) A.nb_imp_out[e * nn + id] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) A.nb_vel_out[e * nn + id] = A.nb_other[(3 + e) * nn + id];
+    }
+    for (int it = 0; it < A.iterations; ++it) {
+      velocity_pass(c, k, on, ni, ti, v);
+      for (int r = 0; r < count; ++r) neighbor_velocity(A, A.nb_order[start + r], p, v0, v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    A.pose_out[r * nl + i] = p[r];
+    A.vel_out[r * nl + i] = v[r];
+  }
+  A.imp_out[i] = ni[0];
+  A.imp_out[nl + i] = ni[1];
+  A.imp_out[2 * nl + i] = ti[0];
+  A.imp_out[3 * nl + i] = ti[1];
+}
+
+}  // namespace
+
+extern "C" int toi_substep_launch(const uint8_t* solve, const int* kind, const float* manifold,
+                                  const float* body, const float* material, const float* pose,
+                                  const float* vel, const int* nb_span, const int* nb_parent,
+                                  const int* nb_order, const int* nb_kind,
+                                  const float* nb_manifold, const float* nb_body,
+                                  const float* nb_material, const float* nb_other,
+                                  float* pose_out, float* vel_out, float* imp_out,
+                                  float* nb_imp_out, float* nb_vel_out, int n_lanes, int n_nb,
+                                  int passes, int iterations, void* stream) {
+  const int n = n_lanes > n_nb ? n_lanes : n_nb;
+  if (n <= 0) return 0;
+  const SubstepArgs A{solve,    kind,     manifold,   body,       material,   pose,
+                      vel,      nb_span,  nb_parent,  nb_order,   nb_kind,    nb_manifold,
+                      nb_body,  nb_material, nb_other, pose_out,  vel_out,    imp_out,
+                      nb_imp_out, nb_vel_out, n_lanes, n_nb,      passes,     iterations};
+  const int blocks = (n + kSubstepThreads - 1) / kSubstepThreads;
+  toi_substep_kernel<<<blocks, kSubstepThreads, 0, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}

@@ -43,6 +43,9 @@ each span and the step's events:
                       (above 1024 fixture slots): the pair refresh, and the
                       start-of-step pass over the worlds a mutation marked
     toi.rounds        calls of the time-of-impact entry (K2)
+    toi.substep_kernel  sub-steps whose passes launched K8 (csrc/toi.cu
+                      `toi_substep_kernel`), one launch each: on a card,
+                      every sub-step; on the CPU, none
 
 Counting costs one check a step while no collector is open; the counts
 are host integers, read at host branches the step takes anyway. Each
@@ -69,7 +72,7 @@ import contextlib
 import threading
 
 EVENTS = ("coloring.runs", "coloring.kernel", "coloring.jp_rounds", "islands.rounds",
-          "pairs.refreshes", "pairs.grid", "toi.rounds")
+          "pairs.refreshes", "pairs.grid", "toi.rounds", "toi.substep_kernel")
 
 
 class Counts:

@@ -220,12 +220,23 @@ on any failure:
      eager calls) and the bound: the bytes of the call (int64 endpoints,
      three flag bytes and the int32 color and rank a slot, the overflow)
      over the HBM rate. `--phase21` runs the build and this phase alone.
+ 22. the TOI sub-step kernel K8 (csrc/toi.cu `toi_substep_kernel`) at
+     the benchmark's scale: 16 x multithread_demo(2800) for 40 steps
+     (2048 lanes a world; the landing's sub-steps) and 512 x pyramid(20)
+     for 60 (128 lanes a world), every sub-step's arguments recorded; K8
+     held bit for bit to `toi_substep_passes_plain` on the sub-step with
+     the most solved lanes of each; its launches, counted from 0 before
+     each roll, against the event "toi.substep_kernel"; its times per call
+     as in phase 8 (graph replay, profiler, host), the plain version's
+     (events around eager calls) and the bound: the bytes K8 must move
+     for the call over the HBM rate. `--phase22` runs the build and this
+     phase alone.
 
 The last lines are the card line, the kernels' JSON record (launches
 counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
 256 x car, phase 16's three rolls, phase 17's three, phase 18's two
 golden batches, phase 19's rolls, phase 20's two-shard rolls and phase
-21's two rolls, by path and summed) and
+21's two rolls and phase 22's two, by path and summed) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -259,6 +270,8 @@ KERNELS = {
                           replaces="box2d_mt_tpu/ops/pallas_solve.py:462"),
     "color_walk": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/coloring.cu",
                        replaces=None),
+    "toi_substep": dict(route="cuda", source="box2d_mt_tpu_torch/csrc/toi.cu",
+                        replaces=None),
 }
 SOURCES = ("solve_middle", "toi", "coloring")    # csrc/<name>.cu, one nvcc each
 SANDWICH_NAMES = ("pack_packed", "vel_iter_packed", "pos_iter_packed", "unpack_packed")
@@ -2327,7 +2340,7 @@ CONSISTENCY_HEAVY = (("64 x pyramid(10)", "pyramid", (10,), 64),
                      ("64 x sphere_stack(10)", "sphere_stack", (10,), 64),
                      ("16 x car", "car", (), 16),
                      ("4 x many_bodies(1200)", "many_bodies", (1200,), 4))
-COUNTED = ("solve_middle", "toi") + SANDWICH_NAMES + ("color_walk",)
+COUNTED = ("solve_middle", "toi") + SANDWICH_NAMES + ("color_walk", "toi_substep")
 
 
 def consistency_tool():
@@ -2346,10 +2359,11 @@ def _count_launch(name):
 
 
 def zero_launches():
-    """Count the CUDA launches of K1-K7 in this process from 0, by the
+    """Count the CUDA launches of K1-K8 in this process from 0, by the
     entry each goes through: ops/solve_middle.py's `_call` (K1 and the
     sandwich, by its C entry point's name), ops/toi.py's `_launch` (K2)
-    and ops/coloring.py's `_launch` (K7, "color_walk"), which the first
+    and `_substep_launch` (K8, "toi_substep") and ops/coloring.py's
+    `_launch` (K7, "color_walk"), which the first
     call wraps. A launch counts once it is taken, from any thread."""
     from box2d_mt_tpu_torch.ops import coloring
     from box2d_mt_tpu_torch.ops import solve_middle as sm
@@ -2372,6 +2386,7 @@ def zero_launches():
         counted_call.counted = True
         sm._call = counted_call
         ktoi._launch = counting(ktoi._launch, "toi")
+        ktoi._substep_launch = counting(ktoi._substep_launch, "toi_substep")
         coloring._launch = counting(coloring._launch, "color_walk")
     with _LAUNCH_LOCK:
         _LAUNCHES.update(dict.fromkeys(COUNTED, 0))
@@ -2845,6 +2860,97 @@ def coloring_kernel(dev):
     return paths, 0.0, m, plain, bnd
 
 
+def substep_bytes(args):
+    """Bytes K8 must move for this call, each read or written once: every
+    lane's solve flag, span, pose and velocity in and its pose, velocity
+    and impulses out; a solved lane's manifold type and count, manifold,
+    masses, centers, radii and material; every neighbor's parent, and an
+    unkept one's velocity in and impulses and velocity out; a kept one's
+    place in nb_order, its fields and its outputs."""
+    solve, nb_parent = args[0], args[8]
+    n_lanes, n_nb = solve.numel(), nb_parent.numel()
+    solved, kept = int(solve.sum()), int((nb_parent >= 0).sum())
+    lane = 1 + 2 * 4 + 2 * 6 * 4 + (6 + 6 + 4) * 4
+    lane_solved = (2 + 8 + 10 + 3) * 4
+    nb = 4
+    nb_unkept = 3 * 4 + (4 + 3) * 4
+    nb_kept = 4 + (4 + 8 + 14 + 3 + 6) * 4 + (4 + 3) * 4
+    return (n_lanes * lane + solved * lane_solved + n_nb * nb
+            + (n_nb - kept) * nb_unkept + kept * nb_kept)
+
+
+def substep_kernel(dev):
+    """22: K8 on the recorded sub-steps of 16 x multithread_demo(2800) and
+    512 x pyramid(20); held to the plain version bit for bit, counted and
+    timed. Returns the launches of each roll, counted from 0 before it,
+    K8's largest difference to the plain version (0: the phase raises on
+    any), its times (`measure`) at the multithread sub-step, the plain
+    version's ms there and the bound."""
+    import torch
+    from box2d_mt_tpu_torch import trace
+    from box2d_mt_tpu_torch.models import scenes
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    from box2d_mt_tpu_torch.state import replicate
+    paths, results = {}, {}
+    plain_passes = ktoi.toi_substep_passes_plain
+    for label, make, n_steps in (
+            ("16 x multithread_demo(2800)",
+             lambda: replicate(scenes.multithread_demo(2800, device=dev), 16), 40),
+            ("512 x pyramid(20)", lambda: batch(20, 512, dev), 60)):
+        calls = []
+        states = make()
+        sync(dev)
+        zero_launches()             # wraps the launch entries in their counters
+        launch = ktoi._substep_launch
+
+        def recorded(args, iterations, launch=launch, calls=calls):
+            calls.append((tuple(a.clone() for a in args), iterations))
+            return launch(args, iterations)
+
+        ktoi._substep_launch = recorded
+        try:
+            with trace.collect() as c:
+                roll(states, n_steps)
+        finally:
+            ktoi._substep_launch = launch
+        sync(dev)
+        launches = paths[f"phase 22 {label} x {n_steps}"] = read_launches()
+        ev = c.events
+        print(f"phase 22 {label} x {n_steps}: K8 launches {launches['toi_substep']}, "
+              f"toi.substep_kernel {ev['toi.substep_kernel']}, toi.rounds {ev['toi.rounds']}, "
+              f"host reads a step {c.host_syncs / c.steps:.3f}, reads in b2.toi_substep "
+              f"{c.reads.get('b2.toi_substep', 0)}")
+        if not calls:
+            raise AssertionError(f"{label}: no TOI sub-step in {n_steps} steps")
+        if launches["toi_substep"] != ev["toi.substep_kernel"] or \
+                launches["toi_substep"] != len(calls):
+            raise AssertionError(f"{label}: {launches['toi_substep']} K8 launches, "
+                                 f"{len(calls)} sub-steps, {ev}")
+        args, iterations = max(calls, key=lambda c: int(c[0][0].sum()))
+        del calls, states
+        got = ktoi.toi_substep_passes(*args, iterations=iterations)
+        want = plain_passes(*args, iterations=iterations)
+        sync(dev)
+        for x, y, name in zip(got, want, ("pose", "vel", "impulses", "nb_impulses",
+                                          "nb_vel")):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: K8 != the plain version in {name}")
+        solved, kept = int(args[0].sum()), int((args[8] >= 0).sum())
+        print(f"phase 22 {label}, the busiest sub-step: {args[0].numel()} lanes, {solved} "
+              f"solved, {kept} kept neighbors, K8 == plain in all five outputs")
+        m = measure(lambda *a: ktoi.toi_substep_passes(*a, iterations=iterations), args)
+        plain = time_call(lambda *a: plain_passes(*a, iterations=iterations), args, reps=3)
+        n_bytes = substep_bytes(args)
+        bnd = bound(n_bytes, 0)
+        print(f"phase 22 K8 [{label}]: {show(m, n_bytes)}; plain {plain:.3f} ms (events "
+              f"around eager calls); bound {bnd[0]:.5f} ms ({bnd[1]}, {n_bytes / 1e6:.3f} "
+              f"MB), {100 * bnd[0] / m['ms']:.2f}% of it")
+        results[label] = (m, plain, bnd)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return (paths, 0.0, *results["16 x multithread_demo(2800)"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2872,6 +2978,7 @@ def main() -> int:
     only1819 = [a[-2:] for a in sys.argv[1:] if a in ("--phase18", "--phase19")]
     only20 = sys.argv[1:] == ["--phase20"]        # the build and phase 20 alone
     only21 = sys.argv[1:] == ["--phase21"]        # the build and phase 21 alone
+    only22 = sys.argv[1:] == ["--phase22"]        # the build and phase 22 alone
     # ---- 1. build, one nvcc per source
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2880,7 +2987,7 @@ def main() -> int:
     for name, info in builds.items():
         print(f"  {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print("    ptxas:", line.strip())
 
     lap(1)
@@ -2903,6 +3010,10 @@ def main() -> int:
     if only21:
         coloring_kernel(dev)
         lap(21)
+        return 0
+    if only22:
+        substep_kernel(dev)
+        lap(22)
         return 0
     # ---- 2. K1 vs plain on captured inputs
     s10, _ = roll(batch(10, 64, dev), 30)
@@ -3238,6 +3349,9 @@ def main() -> int:
     # ---- 21. the coloring kernel K7
     paths21, *k7 = coloring_kernel(dev)
     lap(21)
+    # ---- 22. the TOI sub-step kernel K8
+    paths22, *k8 = substep_kernel(dev)
+    lap(22)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
     # launches: on each main path, counted from 0 just before its run;
@@ -3250,12 +3364,13 @@ def main() -> int:
     paths.update(paths1819)
     paths.update(paths20)
     paths.update(paths21)
+    paths.update(paths22)
     record = []
     for name, err, m, plain, bnd, lib_ms in (
             ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),
             ("toi", err_k2, k2_m, k2_plain, k2_bound, None),
             *((name, err_sw[name], *sw[name]) for name in SANDWICH_NAMES),
-            ("color_walk", *k7, None)):
+            ("color_walk", *k7, None), ("toi_substep", *k8, None)):
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         record.append(dict(name=name, **KERNELS[name], launches=sum(by_path.values()),
                            launches_by_path=by_path, max_abs_err=err, ms=m["ms"],

@@ -38,7 +38,23 @@ and 60000, past a block's shared memory, where the walk keeps its state in
 global memory) and 1 to 32 colors, and on the colorings of the rolled
 pyramids at 16 colors and at 3, where they overflow; `color_constraints`
 launches it for every batch of the Luby tier on a card. Its wrapper's
-argument checks run on the CPU too."""
+argument checks run on the CPU too.
+The TOI sub-step kernel K8 equals `toi_substep_passes_plain` bit for bit,
+twice in a row, in every output (pose, velocity, the lanes' and the
+neighbors' impulses, the neighbors' copies of the other endpoint's
+velocity), on the sub-steps of fast boxes falling onto a ground of short
+static edges (each solved lane keeps five neighbors: ranks 0-4), of a
+bullet beside a resting box (a dynamic neighbor), of chip_smoke.py's
+fast boxes at a thin wall, of unit circles landing on an edge
+(sphere_stack) and of fast circles at a static circle, box and edge
+(e_circles manifolds), with and without mini islands; on lanes cut from
+them to every launch shape: no solved lane, one lane, a ragged count,
+every lane solved and more lanes than one wave, with 0-4 kept neighbors
+a lane; and launched from two shards' threads, each on its own stream.
+On the CPU its wrapper refuses malformed arguments by
+name and takes the plain version, which equals the passes in K8's order
+of work (each lane's constraint, then its neighbors in slot order)
+written out in PyTorch here."""
 
 import collections
 import contextlib
@@ -68,10 +84,17 @@ DT = 1.0 / 60.0
 def launched():
     """Counts the CUDA launches the block makes, by the C entry point each
     goes through: ops/solve_middle.py's `_call` by its entry's name (K1,
-    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2), ops/coloring.py's
+    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2) and its
+    `_substep_launch` as "toi_substep_launch" (K8), ops/coloring.py's
     `_launch` as "color_launch" (K7)."""
     ran = collections.Counter()
     call, launch, color_launch = sm._call, ktoi._launch, coloring._launch
+    substep_launch = ktoi._substep_launch
+
+    def counted_substep_launch(*args):
+        out = substep_launch(*args)
+        ran["toi_substep_launch"] += 1
+        return out
 
     def counted_call(name, *args, **kwargs):
         out = call(name, *args, **kwargs)
@@ -90,10 +113,12 @@ def launched():
 
     sm._call, ktoi._launch, coloring._launch = (counted_call, counted_launch,
                                                  counted_color_launch)
+    ktoi._substep_launch = counted_substep_launch
     try:
         yield ran
     finally:
         sm._call, ktoi._launch, coloring._launch = call, launch, color_launch
+        ktoi._substep_launch = substep_launch
 
 
 @pytest.fixture(scope="module")
@@ -634,7 +659,7 @@ def test_position_sweep_kernel_matches_plain_on_synthetic_lanes(case):
     assert float(k_table[:, sm.MIN_SEP_ROW].min()) < 0.0     # and found overlap
 
 
-def _fast_circles(n, seed=3):
+def _fast_circles(n, seed=3, device="cuda"):
     """n worlds of three 0.1 m circles thrown at 60-240 m/s at a static
     circle, a thin static box and an edge, 2 m away."""
     wb = WorldBuilder(gravity=(0.0, 0.0))
@@ -645,13 +670,13 @@ def _fast_circles(n, seed=3):
     for y in (-4.0, 0.0, 4.0):
         b = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.0, y))
         wb.create_fixture(b, shapes.Circle(0.1), density=1.0)
-    states = replicate(wb.freeze(device="cuda"), n)
+    states = replicate(wb.freeze(device=device), n)
     rng = np.random.default_rng(seed)
     speed = rng.uniform(60.0, 240.0, (n, 3))
     heading = rng.uniform(-0.05, 0.05, (n, 3))
     v = states.bodies.v.clone()
     v[:, 1:4] = torch.as_tensor(np.stack([speed * np.cos(heading), speed * np.sin(heading)],
-                                         -1), dtype=torch.float32, device="cuda")
+                                         -1), dtype=torch.float32, device=device)
     return dataclasses.replace(states, bodies=dataclasses.replace(states.bodies, v=v))
 
 
@@ -858,3 +883,415 @@ def test_coloring_wrapper_checks_arguments():
     refused("max_colors", args, max_colors=0)
     refused("max_colors", args, max_colors=33)
     refused("CUDA tensors", args)
+
+
+# ---- K8: the TOI sub-step's passes ------------------------------------------
+
+
+def _segmented_ground(n, device):
+    """n worlds of a 1 m box falling at 60 m/s onto a ground of 0.2 m static
+    edges, each box a little turned and moved sideways: its sub-step
+    keeps the four or five other edges under it as neighbors."""
+    wb = WorldBuilder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    for i in range(20):
+        wb.create_fixture(ground, shapes.Edge((-2.0 + 0.2 * i, 0.0), (-1.8 + 0.2 * i, 0.0)))
+    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(0.03, 1.5),
+                         linear_velocity=(0.0, -60.0))
+    wb.create_fixture(box, shapes.Polygon.box(0.5, 0.5), density=1.0)
+    states = replicate(wb.freeze(device=device), n)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    b = states.bodies
+    a, c = b.a.clone(), b.c.clone()
+    a[:, box] = (0.02 * (torch.rand(n, generator=g) - 0.5)).to(device)
+    c[:, box, 0] = (0.3 * (torch.rand(n, generator=g) - 0.5)).to(device)
+    return dataclasses.replace(states, bodies=dataclasses.replace(
+        b, a=a, a0=a.clone(), c=c, c0=c.clone()))
+
+
+def fast_box_builder(builder, shapes, settings):
+    """A box thrown at a thin wall, and a bullet landing beside a resting
+    box: the bullet's sub-step keeps that dynamic box as a neighbor. Built
+    with either package's WorldBuilder, shapes and settings."""
+    wb = builder(gravity=(0.0, -10.0))
+    ground = wb.create_body()
+    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
+    wall = wb.create_body(position=(10.0, 5.0))
+    wb.create_fixture(wall, shapes.Polygon.box(0.05, 5.0))
+    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(1.5, 5.0),
+                         linear_velocity=(200.0, 0.0))
+    wb.create_fixture(box, shapes.Polygon.box(0.1, 0.1), density=1.0)
+    rest = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-20.0, 0.5))
+    wb.create_fixture(rest, shapes.Polygon.box(0.5, 0.5), density=1.0)
+    bullet = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-18.99, 4.0),
+                            bullet=True, linear_velocity=(0.0, -100.0))
+    wb.create_fixture(bullet, shapes.Polygon.box(0.5, 0.5), density=1.0)
+    return wb
+
+
+def _bullet_beside_box(n, device):
+    return replicate(fast_box_builder(WorldBuilder, shapes, settings).freeze(device=device), n)
+
+
+@contextlib.contextmanager
+def _recording_substeps():
+    """Yields the list of every sub-step's passes taken in the block, from
+    any thread, at the wrapper's branch on the device: the arguments and
+    velocity iterations, and K8's results where it ran (None on the CPU)."""
+    calls = []
+    launch, plain = ktoi._substep_launch, ktoi.toi_substep_passes_plain
+
+    def keep_launch(args, iterations):
+        out = launch(args, iterations)
+        calls.append((tuple(a.clone() for a in args), iterations,
+                      tuple(o.clone() for o in out)))
+        return out
+
+    def keep_plain(*args, iterations, syncs=None):
+        calls.append((tuple(a.clone() for a in args), iterations, None))
+        return plain(*args, iterations=iterations, syncs=syncs)
+
+    ktoi._substep_launch, ktoi.toi_substep_passes_plain = keep_launch, keep_plain
+    try:
+        yield calls
+    finally:
+        ktoi._substep_launch, ktoi.toi_substep_passes_plain = launch, plain
+
+
+def _substep_calls(states, n_steps, **kw):
+    """The arguments of every sub-step's passes over n_steps, each with its
+    velocity iterations."""
+    with _recording_substeps() as calls:
+        for _ in range(n_steps):
+            states, _ = step_batched(states, DT, max_colors=8, **kw)
+    assert calls, "no TOI sub-step"
+    return [(args, iterations) for args, iterations, _ in calls]
+
+
+def _kept(args):
+    return args[7][1]
+
+
+@pytest.fixture(scope="module")
+def cpu_substeps():
+    """The first sub-step of 8 segmented grounds and of 2 bullet worlds, on
+    the CPU."""
+    ground = _substep_calls(_segmented_ground(8, "cpu"), 1)[0]
+    bullet = [c for c in _substep_calls(_bullet_beside_box(2, "cpu"), 3)
+              if int(_kept(c[0]).sum())][0]
+    return {"segmented_ground": ground, "bullet": bullet}
+
+
+def _lane_order(args, iterations):
+    """The sub-step's passes in K8's order of work, in PyTorch: every lane
+    at once applies its own constraint and then its r-th kept neighbor for
+    r = 0, 1, ..., gathered by lane (no scatter); the neighbors' results
+    go to their places at the end."""
+    from box2d_mt_tpu_torch.ops import solver
+    (solve, kind, manifold, body, material, pose, vel, span, parent, order, nb_kind,
+     nb_manifold, nb_body, nb_material, nb_other) = args
+    start, count = span.long()
+    n_nb = parent.shape[0]
+    ids = [order.long()[(start + r).clamp(0, n_nb - 1)] for r in range(int(count.max()))]
+    has = [count[None] > r for r in range(len(ids))]
+
+    def contact(kind_, manifold_, material_, lanes=None):
+        pick = (lambda t: t) if lanes is None else (lambda t: t[:, lanes])
+        mtype, npts = pick(kind_)[:2, None]
+        lpx, lpy, lnx, lny, p0x, p0y, p1x, p1y = pick(manifold_)[:, None]
+        return dict(mtype=mtype, count=npts, lp=(lpx, lpy), ln=(lnx, lny),
+                    pts=((p0x, p1x), (p0y, p1y)), mat=tuple(pick(material_)[:, None]),
+                    man=(mtype, torch.stack([lpx, lpy], -1), torch.stack([lnx, lny], -1),
+                         torch.stack([torch.stack([p0x, p0y], -1),
+                                      torch.stack([p1x, p1y], -1)], -2), npts))
+
+    def pos_args(k, lc_a, lc_b, ra, rb):
+        return (ra, rb, *lc_a, *lc_b, *k["lp"], *k["ln"], *k["pts"])
+
+    own = contact(kind, manifold, material)
+    m_a, m_b, i_a, i_b, lcax, lcay, lcbx, lcby, ra, rb = body[:, None]
+    lane_pos_args = pos_args(own, (lcax, lcay), (lcbx, lcby), ra, rb)
+    nbrs = []
+    for lanes in ids:
+        k = contact(nb_kind, nb_manifold, nb_material, lanes)
+        nb = nb_body[:, lanes][:, None]
+        k.update(toi_a=(nb_kind[2, lanes] != 0)[None], side_a=(nb_kind[3, lanes] != 0)[None],
+                 p_mass=tuple(nb[0:4]), v_mass=tuple(nb[4:8]),
+                 lc=(tuple(nb[8:10]), tuple(nb[10:12])), r=tuple(nb[12:14]),
+                 other=nb_other[:, lanes][:, None], lanes=lanes)
+        k["pos_args"] = pos_args(k, *k["lc"], *k["r"])
+        nbrs.append(k)
+
+    def split(k, six, other3):
+        """The neighbor's six endpoint values: the TOI body's from the
+        lane's six, the other endpoint's from other3."""
+        t = [torch.where(k["side_a"], six[i], six[i + 3]) for i in range(3)]
+        return ([torch.where(k["toi_a"], t[i], other3[i]) for i in range(3)]
+                + [torch.where(k["toi_a"], other3[i], t[i]) for i in range(3)]), t
+
+    def add_own(k, six, d, on):
+        out = list(six)
+        for i in range(3):
+            out[i] = torch.where(on & k["side_a"], six[i] + d[i], six[i])
+            out[i + 3] = torch.where(on & ~k["side_a"], six[i + 3] + d[i], six[i + 3])
+        return out
+
+    def toi_part(k, six):
+        return [torch.where(k["toi_a"], six[i], six[i + 3]) for i in range(3)]
+
+    on = solve[None]
+    pos = list(pose[:, None])
+    for _ in range(ktoi.TOI_POSITION_PASSES):
+        pos = list(solver.position_contact_math_s(
+            own["mtype"], own["count"], m_a, m_b, i_a, i_b, *lane_pos_args, *pos, on,
+            settings.TOI_BAUMGARTE, settings.MAX_LINEAR_CORRECTION)[:6])
+        for k, act in zip(nbrs, has):
+            before, t = split(k, pos, k["other"][0:3])
+            after = solver.position_contact_math_s(
+                k["mtype"], k["count"], *k["p_mass"], *k["pos_args"], *before, act,
+                settings.TOI_BAUMGARTE, settings.MAX_LINEAR_CORRECTION)
+            pos = add_own(k, pos, [a - b for a, b in zip(toi_part(k, after), t)], act)
+
+    def prep(k, six, vel6, masses):
+        (lc_a, lc_b), (r_a, r_b) = k["lc"], k["r"]
+        return ktoi._velocity_prep(
+            *k["man"], torch.stack(six[0:2], -1), six[2], torch.stack(lc_a, -1), r_a,
+            torch.stack(six[3:5], -1), six[5], torch.stack(lc_b, -1), r_b, *masses,
+            torch.stack(vel6[0:2], -1), vel6[2], torch.stack(vel6[3:5], -1), vel6[5],
+            k["mat"][1])
+
+    v0 = list(vel[:, None])
+    own.update(lc=((lcax, lcay), (lcbx, lcby)), r=(ra, rb))
+    lane_args = prep(own, pos, v0, (m_a, m_b, i_a, i_b))
+    zero = torch.zeros_like(m_a)
+    for k in nbrs:
+        six, _ = split(k, pos, k["other"][0:3])
+        w0, _ = split(k, v0, k["other"][3:6])
+        k["vel_args"] = prep(k, six, w0, k["v_mass"])
+        k["nn"], k["nt"], k["ov"] = (zero, zero), (zero, zero), list(k["other"][3:6])
+    ni, ti, v = (zero, zero), (zero, zero), v0
+    for _ in range(iterations):
+        ni, ti, *v = solver.velocity_contact_math_s(
+            own["mat"][0], own["mat"][2], m_a, m_b, i_a, i_b, *lane_args, ni, ti, *v, on)
+        for k, act in zip(nbrs, has):
+            before, t = split(k, v, k["ov"])
+            k["nn"], k["nt"], *after = solver.velocity_contact_math_s(
+                k["mat"][0], k["mat"][2], *k["v_mass"], *k["vel_args"], k["nn"], k["nt"],
+                *before, act)
+            v = add_own(k, v, [a - b for a, b in zip(toi_part(k, after), t)], act)
+            other = [torch.where(k["toi_a"], after[i + 3], after[i]) for i in range(3)]
+            k["ov"] = [torch.where(act, o, p) for o, p in zip(other, k["ov"])]
+    nb_imp = torch.zeros((4, n_nb))
+    nb_vel = nb_other[3:6].clone()
+    for k, act in zip(nbrs, has):
+        lanes = k["lanes"][act[0]]
+        nb_imp[:, lanes] = torch.cat([*k["nn"], *k["nt"]])[:, act[0]]
+        nb_vel[:, lanes] = torch.cat(k["ov"])[:, act[0]]
+    return torch.cat(pos), torch.cat(v), torch.cat([*ni, *ti]), nb_imp, nb_vel
+
+
+@pytest.mark.parametrize("scene", ["segmented_ground", "bullet"])
+def test_toi_substep_plain_equals_each_lane_in_turn(cpu_substeps, scene):
+    """CPU lanes take the plain version (no launch, no "toi.substep_kernel"),
+    which equals the passes in K8's order of work: the rank-by-rank loops
+    the step ran inline are each lane's constraint and then its kept
+    neighbors in slot order."""
+    args, iterations = cpu_substeps[scene]
+    kept = _kept(args)
+    if scene == "segmented_ground":
+        assert int(kept.max()) >= 4 and int((kept > 0).sum()) == 8     # ranks 0-3 and more
+    else:
+        assert int(kept.sum()) > 0 and bool((args[-1][3:6].abs() > 0).any())
+    syncs = HostSyncs()
+    with launched() as ran:
+        got = ktoi.toi_substep_passes(*args, iterations=iterations, syncs=syncs)
+    want = ktoi.toi_substep_passes_plain(*args, iterations=iterations)
+    assert not ran
+    assert "toi.substep_kernel" not in syncs.events
+    assert syncs.count == 1          # the plain version's one read: the largest rank
+    ref = _lane_order(args, iterations)
+    for name, g, w, r in zip(("pose", "vel", "impulses", "nb_impulses", "nb_vel"),
+                             got, want, ref):
+        assert torch.equal(g, w), name
+        assert torch.equal(g, r), name
+    solved = args[0]
+    assert bool((got[2][0:2, solved].sum(0) > 0).all())      # every solved lane pushed
+
+
+def _substep_faulty(t, fault):
+    """`t` with one fault, as `_faulty` makes them; a 1-D tensor that sets
+    L or N gets a second axis for its shape."""
+    if fault == "shape" and t.dim() == 1:
+        return t[:, None]
+    return _faulty(t, fault)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "contiguous"])
+def test_toi_substep_wrapper_checks_arguments(cpu_substeps, fault):
+    """K8's wrapper refuses each malformed argument by its name before any
+    launch."""
+    args, iterations = cpu_substeps["bullet"]
+    names = [name for name, _, _, _ in ktoi._SUBSTEP_ARGS]
+    for i, name in enumerate(names):
+        bad = list(args)
+        bad[i] = _substep_faulty(args[i], fault)
+        # the others' device is held against `solve`'s
+        match = ("kind is on cpu, expected meta" if (fault, name) == ("device", "solve")
+                 else f": {name} is on meta" if fault == "device" else f": {name} ")
+        with pytest.raises(ValueError, match=match):
+            ktoi.toi_substep_passes(*bad, iterations=iterations)
+    with pytest.raises(ValueError, match="must not be negative"):
+        ktoi.toi_substep_passes(*args, iterations=-1)
+    with pytest.raises(ValueError, match="15 tensors expected"):
+        ktoi.toi_substep_passes(*args[:-1], iterations=iterations)
+
+
+@pytest.fixture(scope="module")
+def card_substeps():
+    """Sub-steps on the card: the segmented grounds, the bullet worlds, the
+    segmented grounds without mini islands, chip_smoke.py's 4096 fast
+    boxes at a thin wall, the busiest of 64 x sphere_stack(10)'s first 12
+    steps (unit circles on an edge) and 512 worlds of fast circles (circle
+    against circle, box and edge)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    import chip_smoke
+    solved = lambda call: int(call[0][0].sum())
+    return {
+        "segmented_ground": _substep_calls(_segmented_ground(64, "cuda"), 1)[0],
+        "bullet": [c for c in _substep_calls(_bullet_beside_box(4, "cuda"), 3)
+                   if int(_kept(c[0]).sum())][0],
+        "no_neighbors": _substep_calls(_segmented_ground(64, "cuda"), 1,
+                                       toi_neighbors=False)[0],
+        "fast_boxes": _substep_calls(chip_smoke.fast_box_worlds(4096, "cuda"), 1)[0],
+        "sphere_stack": max(_substep_calls(replicate(scenes.sphere_stack(10, device="cuda"),
+                                                     64), 12), key=solved),
+        "fast_circles": _substep_calls(_fast_circles(512), 1)[0],
+    }
+
+
+def _substep_case(args, n_lanes, solved, keep):
+    """n_lanes lanes cut from a captured sub-step: lane j copies the j-th
+    (cyclically) of its solved lanes with the first keep[j % len(keep)] of
+    that lane's kept neighbors, solved where `solved` says (an unsolved
+    lane keeps none); 16 more neighbors that no lane keeps follow."""
+    lanes_in, _, _, _, _, _, _, span = args[:8]
+    nb_in = args[8:]
+    dev = lanes_in.device
+    pick = torch.nonzero(lanes_in).flatten()
+    src = pick[torch.arange(n_lanes, device=dev) % pick.numel()]
+    solved = torch.as_tensor(solved, device=dev)
+    keep = torch.as_tensor(keep, device=dev)[torch.arange(n_lanes, device=dev) % len(keep)]
+    count = torch.where(solved, torch.minimum(keep, span[1, src].long()), 0)
+    n_kept = int(count.sum())
+    owner = torch.repeat_interleave(torch.arange(n_lanes, device=dev), count,
+                                    output_size=n_kept)
+    rank = (torch.arange(n_kept, device=dev)
+            - torch.repeat_interleave(torch.cumsum(count, 0) - count, count,
+                                      output_size=n_kept))
+    old = nb_in[1].long()[span[0, src[owner]].long() + rank]
+    old = torch.cat([old, torch.arange(16, device=dev) % nb_in[0].numel()])
+    lane_rows = [t[..., src].contiguous() for t in args[1:7]]
+    span_new = torch.stack([torch.cumsum(count, 0) - count, count]).to(torch.int32)
+    parent = torch.cat([owner, torch.full((16,), -1, device=dev)]).to(torch.int32)
+    order = torch.arange(n_kept + 16, device=dev, dtype=torch.int32)
+    nb_rows = [t[..., old].contiguous() for t in nb_in[2:]]
+    return (solved.contiguous(), *lane_rows, span_new.contiguous(), parent, order, *nb_rows)
+
+
+SUBSTEP_SHAPES = {
+    # (lanes, solved mask, kept neighbors a lane, cycled)
+    "none_solved": (4096, lambda n: np.zeros(n, bool), [0]),
+    "one_lane": (1, lambda n: np.ones(n, bool), [3]),
+    "ragged": (1001, lambda n: np.arange(n) % 3 != 1, [0, 1, 2, 3, 4]),
+    "all_solved": (8192, lambda n: np.ones(n, bool), [4, 0, 2]),
+    "past_one_wave": (300_001, lambda n: np.arange(n) % 7 == 0, [1, 4, 0, 3]),
+}
+
+
+def _equal_to_plain(args, iterations):
+    """K8 twice against the plain version: equal values everywhere, equal
+    bits on the solved lanes and the kept neighbors."""
+    want = ktoi.toi_substep_passes_plain(*args, iterations=iterations)
+    on, kept = args[0], args[8] >= 0
+    with launched() as ran:
+        for _ in range(2):
+            got = ktoi.toi_substep_passes(*args, iterations=iterations)
+            torch.cuda.synchronize()
+            for name, g, w, sel in zip(("pose", "vel", "impulses", "nb_impulses", "nb_vel"),
+                                       got, want, (on, on, on, kept, kept)):
+                assert torch.equal(g, w), name
+                assert torch.equal(g[:, sel].view(torch.int32), w[:, sel].view(torch.int32)), name
+    assert ran == {"toi_substep_launch": 2}
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["segmented_ground", "bullet", "no_neighbors",
+                                   "fast_boxes", "sphere_stack", "fast_circles"])
+def test_toi_substep_kernel_matches_plain(card_substeps, scene):
+    args, iterations = card_substeps[scene]
+    kept = _kept(args)
+    solve, kind, body = args[0], args[1], args[3]
+    if scene == "no_neighbors":
+        assert args[8].numel() == 0 and int(kept.max()) == 0
+    elif scene == "sphere_stack":
+        assert bool((body[9, solve] == 1.0).all())          # a unit circle on each lane
+    elif scene == "fast_circles":
+        assert int((kind[0, solve] == settings.MANIFOLD_CIRCLES).sum()) > 0
+    elif scene != "fast_boxes":
+        assert int(kept.max()) >= (4 if scene == "segmented_ground" else 1)
+    got = _equal_to_plain(args, iterations)
+    assert bool((got[2][0:2, solve].sum(0) > 0).any())      # the passes pushed
+
+
+@pytest.mark.gpu
+def test_toi_substep_kernel_matches_plain_on_shard_threads():
+    """Two shards of 64 segmented grounds on one card, each stepped from
+    its own thread on its own stream: every K8 launch there equals the
+    plain version bit for bit, and the sharded step equals the unsharded
+    one bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    from box2d_mt_tpu_torch.parallel import sharding
+    from box2d_mt_tpu_torch.world import possible_kinds
+    dev = torch.device("cuda", torch.cuda.current_device())
+    states = _segmented_ground(64, "cuda")
+    kw = dict(max_colors=8, kinds=possible_kinds(states))
+    step, shard = sharding.make_sharded_step([dev, dev], **kw)
+    try:
+        with _recording_substeps() as calls:
+            got, _ = step(shard(states), DT)
+    finally:
+        step.close()
+    with _recording_substeps() as whole:
+        want, _ = step_batched(states, DT, **kw)
+    torch.cuda.synchronize()
+    assert len(calls) >= 2 and all(out is not None for _, _, out in calls)
+    # each launch took one shard's lanes
+    assert {args[0].numel() for args, _, _ in calls} == \
+        {args[0].numel() // 2 for args, _, _ in whole}
+    for args, iterations, out in calls:
+        plain = ktoi.toi_substep_passes_plain(*args, iterations=iterations)
+        for name, g, w in zip(("pose", "vel", "impulses", "nb_impulses", "nb_vel"),
+                              out, plain):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    got = got.gather()
+    for name in ("c", "a", "v", "w"):
+        assert torch.equal(getattr(got.bodies, name), getattr(want.bodies, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SUBSTEP_SHAPES))
+def test_toi_substep_kernel_matches_plain_at_every_launch_shape(card_substeps, case):
+    args, iterations = card_substeps["segmented_ground"]
+    n, solved, keep = SUBSTEP_SHAPES[case]
+    cut = _substep_case(args, n, solved(n), keep)
+    got = _equal_to_plain(cut, iterations)
+    on = cut[0]
+    # an unsolved lane without neighbors comes out as it went in
+    assert torch.equal(got[0][:, ~on], cut[5][:, ~on])
+    assert torch.equal(got[2][:, ~on], torch.zeros_like(got[2][:, ~on]))
+    if bool(on.any()):
+        assert set(_kept(cut)[on].tolist()) <= set(keep)
+        assert bool((got[2][0:2, on].sum(0) > 0).any())

@@ -44,6 +44,7 @@ from box2d_mt_tpu_torch.state import state_from_numpy, to_numpy
 
 from conftest import GOLDEN
 from test_pallas_toi import _build_lanes
+from test_torch_kernels import fast_box_builder
 
 DT = 1.0 / 60.0
 
@@ -240,23 +241,6 @@ def test_toi_neighbors_off_matches_on_for_pyramid(pyramid_roll):
         np.testing.assert_array_equal(t.contacts.toi_count, steps[i][2].contacts.toi_count)
 
 
-def _fast_box_world(builder, shapes, settings):
-    wb = builder(gravity=(0.0, -10.0))
-    ground = wb.create_body(position=(0.0, 0.0))
-    wb.create_fixture(ground, shapes.Edge((-40.0, 0.0), (40.0, 0.0)))
-    wall = wb.create_body(position=(10.0, 5.0))
-    wb.create_fixture(wall, shapes.Polygon.box(0.05, 5.0))
-    box = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(1.5, 5.0),
-                         linear_velocity=(200.0, 0.0))
-    wb.create_fixture(box, shapes.Polygon.box(0.1, 0.1), density=1.0)
-    rest = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-20.0, 0.5))
-    wb.create_fixture(rest, shapes.Polygon.box(0.5, 0.5), density=1.0)
-    bullet = wb.create_body(body_type=settings.DYNAMIC_BODY, position=(-18.99, 4.0),
-                            bullet=True, linear_velocity=(0.0, -100.0))
-    wb.create_fixture(bullet, shapes.Polygon.box(0.5, 0.5), density=1.0)
-    return wb.freeze()
-
-
 _FAST_BOX_KINDS = (jnph.KIND_POLYGONS, jnph.KIND_EDGE_POLYGON)
 
 
@@ -266,7 +250,7 @@ def _fast_box_steps_match_jax(monkeypatch, toi_neighbors):
     `toi_neighbors`. Returns the dynamic neighbors each mini island kept
     and the last JAX state."""
     kw = dict(max_colors=4, kinds=_FAST_BOX_KINDS, toi_neighbors=toi_neighbors)
-    jst = _fast_box_world(jworld.WorldBuilder, jshapes, jsettings)
+    jst = fast_box_builder(jworld.WorldBuilder, jshapes, jsettings).freeze()
     committed = []
     island = tworld._MiniIsland.__init__
 
@@ -288,8 +272,8 @@ def _fast_box_steps_match_jax(monkeypatch, toi_neighbors):
 def test_fast_box_stops_at_thin_wall(monkeypatch):
     kw = dict(max_colors=4)
     kinds = _FAST_BOX_KINDS
-    start = state_from_numpy(jax.tree.map(
-        np.asarray, _fast_box_world(jworld.WorldBuilder, jshapes, jsettings)), device="cpu")
+    jst = fast_box_builder(jworld.WorldBuilder, jshapes, jsettings).freeze()
+    start = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     committed, j = _fast_box_steps_match_jax(monkeypatch, toi_neighbors=True)
     assert sum(committed) >= 1          # a dynamic neighbor was committed
     assert float(j.bodies.c[2, 0]) < 10.0

@@ -8,7 +8,9 @@ colorings and TOI rounds, with one TOI sub-step at step 12.
     host's timeline alone; without a profiler no range is opened.
   * Inside `trace.collect()` each event counter equals a count taken
     through a wrapper of the function it counts, and the reads by span
-    sum to the steps' Events.host_syncs.
+    sum to the steps' Events.host_syncs. On the CPU no sub-step launches
+    K8 ("toi.substep_kernel" 0); on a card (gpu marker) every sub-step
+    launches it once.
   * Two CPU shards count what their worlds count stepped unsharded, and
     collectors add exactly under threads.
 """
@@ -23,6 +25,7 @@ import torch
 from box2d_mt_tpu_torch import trace, world
 from box2d_mt_tpu_torch.models import scenes
 from box2d_mt_tpu_torch.ops import broadphase, coloring
+from box2d_mt_tpu_torch.ops import toi as ktoi
 from box2d_mt_tpu_torch.ops.sync import HostSyncs
 from box2d_mt_tpu_torch.ops.toi import time_of_impact_lanes
 from box2d_mt_tpu_torch.parallel import sharding
@@ -150,9 +153,16 @@ def test_counters_equal_the_counts_of_wrappers(start, monkeypatch):
         calls["toi"] += 1
         return time_of_impact_lanes(*args)
 
+    substep_plain = ktoi.toi_substep_passes_plain
+
+    def counted_substep(*args, **kwargs):
+        calls["substep"] = calls.get("substep", 0) + 1
+        return substep_plain(*args, **kwargs)
+
     monkeypatch.setattr(coloring, "color_constraints", counted_coloring)
     monkeypatch.setattr(broadphase, "find_pairs", counted_find_pairs)
     monkeypatch.setattr(world, "_post_solve_b", marked_post_solve)
+    monkeypatch.setattr(ktoi, "toi_substep_passes_plain", counted_substep)
     with trace.collect() as counts:
         _, syncs = _roll(start, toi=counted_toi)
     # every label pass runs to its fixed point below 257 bodies, one read a
@@ -163,7 +173,8 @@ def test_counters_equal_the_counts_of_wrappers(start, monkeypatch):
                              "islands.rounds": counts.reads["b2.islands"] - STEPS,
                              "pairs.refreshes": calls["post_solve_pairs"],
                              "pairs.grid": 0,
-                             "toi.rounds": calls["toi"]}
+                             "toi.rounds": calls["toi"],
+                             "toi.substep_kernel": 0}
     assert counts.events["islands.rounds"] > 0
     assert min(calls.values()) > 0, calls
     assert counts.steps == STEPS
@@ -223,7 +234,36 @@ def test_collectors_add_exactly_under_threads():
                                "events": {"coloring.runs": 0, "coloring.kernel": 0,
                                           "coloring.jp_rounds": 0, "islands.rounds": 0,
                                           "pairs.refreshes": 0, "pairs.grid": 0,
-                                          "toi.rounds": n}}
+                                          "toi.rounds": n, "toi.substep_kernel": 0}}
     assert outer.steps == n + 1
     trace.merge(syncs)          # no collector open: nothing to add to
     assert outer.steps == n + 1
+
+
+@pytest.mark.gpu
+def test_each_substep_launches_the_substep_kernel_once_on_a_card():
+    """On a card every TOI sub-step's passes are one launch of K8: the
+    event "toi.substep_kernel" equals the launches taken, and the plain
+    version never runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on a card")
+    launch, plain = ktoi._substep_launch, ktoi.toi_substep_passes_plain
+    taken = []
+
+    def counted_launch(*args):
+        taken.append(1)
+        return launch(*args)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the plain version ran on a card")
+
+    states = replicate(scenes.pyramid(3, device="cuda"), 2)
+    ktoi._substep_launch, ktoi.toi_substep_passes_plain = counted_launch, refused
+    try:
+        with trace.collect() as counts:
+            _roll(states, n=FIRST + STEPS)
+    finally:
+        ktoi._substep_launch, ktoi.toi_substep_passes_plain = launch, plain
+    assert len(taken) > 0
+    assert counts.events["toi.substep_kernel"] == len(taken)
+    assert counts.reads.get("b2.toi_substep", 0) == 0    # no read of a rank bound
