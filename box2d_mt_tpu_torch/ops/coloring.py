@@ -28,7 +28,8 @@ package's vmapped while loops.
 
 import torch
 
-from ..cuda_build import call, need
+from .. import cuda_build
+from ..cuda_build import need
 from ..math2d import take
 from .sync import HostSyncs
 
@@ -100,9 +101,10 @@ def _launch(body_a, body_b, conflict_a, conflict_b, active, n_bodies, max_colors
     rank = torch.empty_like(color)
     overflow = torch.empty(nw, dtype=torch.int32, device=dev)
     masks = torch.empty((nw, n_bodies), dtype=torch.int32, device=dev)
-    call("coloring", "color_launch", dev,
-         (body_a, body_b, conflict_a, conflict_b, active, color, rank, overflow, masks),
-         (nw, k, n_bodies, max_colors))
+    cuda_build.call(
+        "coloring", "color_launch", dev,
+        (body_a, body_b, conflict_a, conflict_b, active, color, rank, overflow, masks),
+        (nw, k, n_bodies, max_colors))
     return color, overflow, rank
 
 

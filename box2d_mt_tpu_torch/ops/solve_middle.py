@@ -75,8 +75,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .. import settings
-from ..cuda_build import call, need
+from .. import cuda_build, settings
+from ..cuda_build import need
 from .integrate import integrate_positions
 from .solver import position_contact_math_s, velocity_contact_math_s
 
@@ -126,7 +126,7 @@ def solve_middle(blob, perm, color_start, dyn_ab, vel, pos, movable, dt: float,
 def _call(name, device, pointers, ints, dt=None):
     """Launch one kernel of csrc/solve_middle.cu (`cuda_build.call`), the
     time step `dt` after the ints where the entry takes one."""
-    call("solve_middle", name, device, pointers, ints, () if dt is None else (dt,))
+    cuda_build.call("solve_middle", name, device, pointers, ints, () if dt is None else (dt,))
 
 
 def _launch(blob, perm, color_start, dyn_ab, vel, pos, movable, dt,

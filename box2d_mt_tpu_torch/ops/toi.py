@@ -89,8 +89,8 @@ import ctypes
 
 import torch
 
-from .. import settings
-from ..cuda_build import call, entry, need
+from .. import cuda_build, settings
+from ..cuda_build import entry, need
 from ..math2d import add_rows, rot_from_angle, rot_vec, take
 from . import distance
 from . import solver as csolver
@@ -145,7 +145,7 @@ def _launch(args):
     device, n = active.device, active.shape[0]
     state = torch.empty(n, dtype=torch.int32, device=device)
     t = torch.empty(n, dtype=torch.float32, device=device)
-    call("toi", "toi_launch", device, (*args, state, t), (n,))
+    cuda_build.call("toi", "toi_launch", device, (*args, state, t), (n,))
     return state, t
 
 
@@ -231,8 +231,8 @@ def _substep_launch(args, iterations):
     device = args[0].device
     new = lambda rows, n: torch.empty((rows, n), dtype=torch.float32, device=device)
     out = (new(6, n_lanes), new(6, n_lanes), new(4, n_lanes), new(4, n_nb), new(3, n_nb))
-    call("toi", "toi_substep_launch", device, (*args, *out),
-         (n_lanes, n_nb, TOI_POSITION_PASSES, iterations))
+    cuda_build.call("toi", "toi_substep_launch", device, (*args, *out),
+                    (n_lanes, n_nb, TOI_POSITION_PASSES, iterations))
     return out
 
 

@@ -1,41 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (box2d_mt_tpu_torch) on one GPU.
 
-Run from the repository root: `python3 chip_smoke.py`. It needs a CUDA
-device and the CUDA toolkit (nvcc), builds the port's kernels from
-`box2d_mt_tpu_torch/csrc/` (one nvcc per source, started together), and
-runs these phases with continuous collision on (continuous=True), raising
-on any failure:
+Run from the repository root: `python3 chip_smoke.py` runs every phase;
+`python3 chip_smoke.py --phase N [N ...]` runs the build and the named
+phases (and the phases whose inputs they time: 4 before 8, 10 before 12).
+It needs a CUDA device and the CUDA toolkit (nvcc), builds the port's
+kernels from `box2d_mt_tpu_torch/csrc/` (one nvcc per source, started
+together), and runs these phases with continuous collision on
+(continuous=True), raising on any failure. What the card tests in
+tests/test_torch_kernels.py hold (each kernel against its plain version
+at every launch shape) and what the benchmark measures (worlds*steps/s,
+kernels a step, the step split by span) is not repeated here; a bound
+counts bytes and operations as benchmark/roofline.py does, for K1 and K2
+with its functions on the call's arguments.
 
   1. card and build: the `nvidia-smi` card line, each kernel's build time,
      registers and spills;
-  2. the solve-middle kernel (K1) against its plain PyTorch version on
-     inputs captured from the port's own step (64 x pyramid(10) after 30
-     steps, 16 x pyramid(44) after 60, when 1230 contacts a world have
-     formed, and 64 x pyramid(10) recolored with max_colors=3 so the
-     overflow color's Jacobi path runs): atol 1e-5 on
-     positions, 1e-4 on velocities and impulses, equal convergence
-     predicate;
-  3. the time-of-impact kernel (K2) against its plain version on lanes
-     captured from the port's step through its `toi=` hook: (a) 64 x
-     pyramid(10) at the step in which the bottom row reaches the ground,
-     (b) 4096 one-box worlds of a fast box against a thin static box
-     (speeds, angles and spins from a numpy seed), (c) the 200 golden lanes
-     of tests/golden/toi.jsonl, (d) all lanes inactive. Rule: every state
-     and every t equal (same arithmetic in the same order, --fmad=false);
   4. the main path: 512 x pyramid(10) for 60 steps (velocity_iterations=8,
-     position_iterations=3, max_colors=16, continuous=True), counting both
+     position_iterations=3, max_colors=16, continuous=True), counting the
      kernels' launches; no NaN, no color or TOI overflow, every box above
-     y = 0.4; worlds*steps/s with continuous on and off. The kernels'
-     inputs are recorded through the `middle=`/`toi=` hooks during the
-     run, and afterwards K1 (last step) and K2 (the round with most
-     touching lanes) are held against their plain versions on them;
+     y = 0.4. The kernels' inputs are recorded through the `middle=`/`toi=`
+     hooks, and afterwards K1 (last step) and K2 (the round with most
+     touching lanes) are held against their plain versions on them (K1:
+     atol 1e-5 on positions, 1e-4 on velocities and impulses, an equal
+     convergence predicate; K2: every state and every t equal);
   5. the whole step through the kernels vs through the plain versions on
      the card, 64 x pyramid(10) for 20 steps, through the TOI impact
      (c, a to 2e-5, v to 1e-4, awake and toi_count equal);
-  6. large worlds: 128 x pyramid(44) (991 boxes) for 20 steps, counting
-     both kernels' launches and holding K1 and K2 against their plain
-     versions on the inputs recorded as in phase 4;
+  6. 128 x pyramid(44) (991 boxes) for 20 steps, counting both kernels'
+     launches and holding K1 and K2 against their plain versions on the
+     inputs recorded as in phase 4;
   7. sleep: 64 x pyramid(10) until every body sleeps (at most 300 steps),
      then one step that must take the all-asleep skip;
   8. each kernel's times per call on the main path's recorded inputs,
@@ -45,42 +39,28 @@ on any failure:
      wrapper's time on the host (a host clock around 20 un-synchronized
      calls), and events around eager calls (the larger of the two); the
      same for an empty kernel, the launch floor; the plain version's time
-     (events); and the bound: the bytes that call must move (K1: the
-     solved lanes' rows; K2: the active lanes' rows and each proxy's own
-     vertices) over the HBM rate, or its f32 operations over the f32
-     peak, the larger. K1 is also timed on the device at 64 x
-     pyramid(10), 16 x pyramid(44) and 4096 x pyramid(10) (the main
-     path's last-step inputs, each world eight times), each with the path
-     K1 took (resident or ring), its launch shape and the chain of passes
-     its busiest world runs; and at 512 x pyramid(10) without sweeps and
-     with each kind of sweep alone. K2 (its grid beside each) also on
-     phase 3's fast-box lanes (131,072, 4,096
-     active, one a warp before compaction), on 4096 x pyramid(10)'s first
-     round with a touching lane (131,072, 40,960 active; rolled here and
-     held to the plain version bit for bit), and on the main path's
-     busiest round with only its costliest lane active (the chain floor:
-     one lane's dependent chain and the launch);
-  9. the sandwich (K3 pack, K4 velocity sweep, K5 position sweep, K6
-     unpack) against K1 on joint-free batches: on phase 2's captured
-     inputs K3 -> 8 x K4 -> integrate_positions -> 3 x K5 -> K6 gives
-     K1's three outputs to the bit (all run one sweep implementation) on
-     64 x pyramid(10) (K1's resident path), on 16 x pyramid(44) (whose
-     worlds outgrow K4's shared-memory buffers, so its ring turns, and
-     K1 takes its ring path) and on the max_colors=3 inputs (the
-     overflow chunk's parallel apply); the way K1 and K4 took each case
-     is printed;
+     (events); and the bound (benchmark/roofline.py's count). K1 is also
+     timed at 64 x pyramid(10) after 30 steps, 16 x pyramid(44) after 60
+     and 4096 x pyramid(10) (the main path's inputs, each world eight
+     times), each with its path (resident or ring), launch shape and the
+     chain of passes its busiest world runs, and at 512 x pyramid(10)
+     without sweeps and with each kind of sweep alone. K2 (its grid beside
+     each) also on 4096 fast boxes thrown at a thin wall (131,072 lanes,
+     4,096 active, one a warp), on 4096 x pyramid(10)'s first round with a
+     touching lane (held to the plain version bit for bit), and on the
+     main path's busiest round with only its costliest lane active (the
+     chain floor: one lane's dependent chain and the launch);
  10. joint worlds, the sandwich's main path: 256 x tumbler(200) and
      512 x chain_links(30) for 120 and 180 steps (the chain's tip reaches
-     the ground at step 134), counting K3-K6 launches
-     (K3 and K6 once, K4 8 times and K5 3 times per solved step); no NaN,
-     the color overflow reported, every tumbler box inside the container
-     (|x|, |y| < 10.5 in the turning container's frame), every chain
-     plank above y = -0.2;
-     worlds*steps/s, host syncs and CUDA kernels per step. The sandwich's
-     inputs are recorded through the `sandwich=` hook, and afterwards each
-     of K3-K6 is held against its plain version on the inputs of the step
-     with the most solved lanes (every output and the packed table equal
-     to atol 1e-5 positions, 1e-4 velocities and impulses);
+     the ground at step 134), counting K3-K6 launches (K3 and K6 once, K4
+     8 times and K5 3 times per solved step); no NaN, the color overflow
+     reported, every tumbler box inside the container (|x|, |y| < 10.5 in
+     the turning container's frame), every chain plank above y = -0.2.
+     The sandwich's inputs are recorded through the `sandwich=` hook, and
+     afterwards each of K3-K6 is held against its plain version on the
+     inputs of the step with the most solved lanes (every output and the
+     packed table equal to atol 1e-5 positions, 1e-4 velocities and
+     impulses);
  11. the whole step of a joint world through the kernels vs through the
      plain versions, 32 x tumbler(200) for 20 steps (c, a to 2e-5, v and
      the joint impulses to 1e-4, awake equal);
@@ -99,39 +79,35 @@ on any failure:
  14. circles, chains and sensors: 512 x sphere_stack(10) x 120 steps (ten
      unit circles a world dropped at -50 m/s onto an edge ground: K1 with
      circle-circle lanes, K2 with circle proxies against the edge),
-     counting both kernels' launches, with no NaN, no color or TOI
-     overflow and every circle's center above y = 0.5; worlds*steps/s,
-     host syncs and CUDA kernels per step; K1 held against its plain
-     version (phase 4's rules) on the step with the most e_circles lanes
-     and K2 on the round with the most circle-proxy lanes, with the lane
-     counts by manifold type and by proxy vertex count, and both timed
-     there. 256 x pinball x 240 steps (a bullet circle in a chain loop
-     with two motorized flippers: K3-K6, and K2 against the chain's
-     edges) as in phase 10, K3-K6 held against their plain versions on
-     its busiest step, with its solved lanes by manifold type. Then the
-     zoo goldens on the card: twenty-six scenes (circle, chain, sensor and
-     joint worlds, and phase 18's joint-free goldens; see ZOO_GOLDENS) as
-     one padded batch, each held over
-     the steps its JAX test reads at that test's bounds, the sensor's
-     begin and end steps equal to the trace's, and falling_circle alone at
-     the 6 and 2 iterations of its trace;
+     counting the kernels' launches, with no NaN, no color or TOI
+     overflow and every circle's center above y = 0.5; K1 held against
+     its plain version on the step with the most e_circles lanes and K2 on
+     the round with the most circle-proxy lanes, with the lane counts by
+     manifold type and by proxy vertex count, and both timed there. 256 x
+     pinball x 240 steps (a bullet circle in a chain loop with two
+     motorized flippers: K3-K6, and K2 against the chain's edges) as in
+     phase 10, K3-K6 held against their plain versions on its busiest
+     step, with its solved lanes by manifold type. Then the zoo goldens on
+     the card: twenty-six scenes (circle, chain, sensor and joint worlds,
+     and phase 18's joint-free goldens; see ZOO_GOLDENS) as one padded
+     batch, each held over the steps its JAX test reads at that test's
+     bounds, the sensor's begin and end steps equal to the trace's, and
+     falling_circle alone at the 6 and 2 iterations of its trace;
  15. mouse, friction, rope, motor, wheel, pulley and gear joints: 256 x
      car x 120 steps (Testbed Car.h: two wheel joints and 22 revolutes,
      circle wheels on edge terrain: K3-K6 and K2), counting the kernels'
      launches, with no NaN, every body above y = -3 and the chassis driven
-     forward; worlds*steps/s, host syncs and CUDA kernels per step and the
-     phase split; K3-K6 held against their plain versions on its busiest
-     step (phase 10's rules) and K2 on its busiest round (phase 3's).
-     Then one batch of four copies of eight worlds (a box dragged by a
-     mouse joint to (2.0, 0.5), and TYPE_BATCH: friction_top_down,
-     apply_force, rope_swing, motor_drive, wheel_car, pulley_pair,
-     gear_train) rolled 240 steps through the kernels: each scene held to
-     its C++ golden at the JAX package's bounds (JOINT_GOLDENS), the box
-     within 0.1 m of its target by step 120; its first 20 steps again
-     through the plain versions (phase 11's rules). Car's golden is held
-     on world 0 of the car path, rolled on alone for steps 121-240. The
-     rolls that check results and time nothing (the goldens of phases 14
-     and 15) run in inference mode;
+     forward; K3-K6 held against their plain versions on its busiest step
+     (phase 10's rules) and K2 on its busiest round (phase 4's). Then one
+     batch of four copies of eight worlds (a box dragged by a mouse joint
+     to (2.0, 0.5), and TYPE_BATCH: friction_top_down, apply_force,
+     rope_swing, motor_drive, wheel_car, pulley_pair, gear_train) rolled
+     240 steps through the kernels: each scene held to its C++ golden at
+     the JAX package's bounds (JOINT_GOLDENS), the box within 0.1 m of its
+     target by step 120; its first 20 steps again through the plain
+     versions (phase 11's rules). Car's golden is held on world 0 of the
+     car path, rolled on alone for steps 121-240. The rolls that check
+     results and time nothing run in inference mode;
  16. large single worlds, above 1024 fixture slots (the grid pair finder)
      and, for many_bodies, above a block's shared memory (K1's and the
      sweeps' global planes): (a) the grid `find_pairs` runs against the
@@ -141,41 +117,36 @@ on any failure:
      (c) 32 x tiles(20, 200, 10) x 120 and (d) 4 x many_bodies(10000) x
      60 through K1 and K2, counting their launches from 0 before each
      roll: no NaN, no pair overflow, every box in its container, on the
-     tiles or above the ground; worlds*steps/s, host syncs and CUDA
-     kernels a step, K1's path and the phase split with the pair refresh
-     apart; at (d) K1 and K2 against their plain versions (phases 2 and
-     3's rules) and the sandwich against K1 to the bit on K1's inputs;
-     (e) the six ManyBodies variants as one batch, 12 steps with
-     `floater_drive`: no overflow, finite, inside the border; (f) the
-     tiles(4, 20, 2) and multithread_demo(200) goldens as one batch for
-     240 steps, each under 0.05; (g) K1's device time and bound at (b)'s
-     and (d)'s last step. `python3 chip_smoke.py --phase16` runs the
-     build and this phase alone;
+     tiles or above the ground, K1's path; at (d) K1 and K2 against their
+     plain versions (phase 4's rules) and the sandwich against K1 to the
+     bit on K1's inputs; (e) the six ManyBodies variants as one batch, 12
+     steps with `floater_drive`: no overflow, finite, inside the border;
+     (f) the tiles(4, 20, 2) and multithread_demo(200) goldens as one
+     batch for 240 steps, each under 0.05; (g) K1's device time and bound
+     at (b)'s and (d)'s last step;
  17. the PreSolve hook and between-step mutations: (a) 256 x
      conveyor_belt x 120 and 256 x one_sided_platform x 120 with their
      batched hooks (a belt speed on the platform's contacts; the platform
      disabled while the actor is below its top) through K1 and K2,
      launches counted from 0 before each roll: no NaN, every box carried
      6 m along the belt, every actor on the platform at 11.005 +- 0.05;
-     worlds*steps/s, host syncs and CUDA kernels a step, and the same
-     conveyor roll without the hook beside it; K1 against its plain
-     version on the step with the most solved lanes and K2 on the round
-     with the most touching lanes (phases 2 and 3's rules); (b) the two
-     hook goldens (conveyor_belt_240, one_sided_platform_240) as one batch
-     under one hook, and the four mutation goldens (shape_editing,
-     breakable with its split at step 167 on the TOI sub-step's PostSolve
-     impulse, collision_processing, skier) as one batch driven by `mutate`
-     between steps, at the JAX package's bounds (breakable's up to its
-     break); (c) 128 x pyramid(6) with a revolute and a distance joint
-     added at run time by `mutate` (different bodies in each world), 60
-     steps through K3-K6, each held against its plain version on the
-     busiest step (phase 10's rules); (d) shapecast.jsonl, rope_pbd_240
-     for a batch of 1024 ropes (each step one replayed CUDA graph of its
-     launches), and ray casts over 4096 worlds, each equal
-     to the CPU result (1e-5; the rope's 60th step to 1e-4) and the
-     shape cast and the rope within the JAX package's bounds of their C++
-     traces. `python3 chip_smoke.py --phase17` runs the build and this
-     phase alone;
+     the conveyor rolled without the hook and with a hook that changes
+     nothing, which must give the same states and host reads; K1 against
+     its plain version on the step with the most solved lanes and K2 on
+     the round with the most touching lanes; (b) the two hook goldens
+     (conveyor_belt_240, one_sided_platform_240) as one batch under one
+     hook, and the four mutation goldens (shape_editing, breakable with
+     its split at step 167 on the TOI sub-step's PostSolve impulse,
+     collision_processing, skier) as one batch driven by `mutate` between
+     steps, at the JAX package's bounds (breakable's up to its break); (c)
+     128 x pyramid(6) with a revolute and a distance joint added at run
+     time by `mutate` (different bodies in each world), 60 steps through
+     K3-K6, each held against its plain version on the busiest step
+     (phase 10's rules); (d) shapecast.jsonl, rope_pbd_240 for a batch of
+     1024 ropes (each step one replayed CUDA graph of its launches), and
+     ray casts over 4096 worlds, each equal to the CPU result (1e-5; the
+     rope's 60th step to 1e-4) and the shape cast and the rope within the
+     JAX package's bounds of their C++ traces;
  18. the joint goldens no earlier phase held, each over all 240 steps of
      its trace at the JAX package's bounds (JOINT_GOLDENS):
      collision_filtering, dominos, pinball and tumbler(40) as one batch
@@ -185,10 +156,10 @@ on any failure:
      launched, counted from 0 before its rolls; add_pair(50, 7) on the
      card against the port's roll on the host's CPU through step 15 (c, a
      to 2e-5, v, w to 1e-4, awake and pairs equal). The joint-free goldens
-     no earlier phase held are phase 14's. `--phase18` runs the build and
-     this phase alone. Phases 18 and 19 run side by side as the tasks of
-     one pool of worker processes on the card (PARALLEL_WORKERS; the rolls
-     are bound by the host), each task printing its own time;
+     no earlier phase held are phase 14's. Phases 18 and 19 run side by
+     side as the tasks of one pool of worker processes on the card
+     (PARALLEL_WORKERS; the rolls are bound by the host), each task
+     printing its own time;
  19. bit reproducibility (tools/consistency_torch.py): every scene of its
      list at 4 lanes, and 64 x pyramid(10), 64 x sphere_stack(10), 16 x
      car and 4 x many_bodies(1200), rolled twice for 120 steps as padded
@@ -196,8 +167,7 @@ on any failure:
      between the two rolls and every lane equal to the first of its
      scene; the mutation sequence replayed twice. Phase 18's two golden
      batches are this check of their scenes: their first 120 steps rolled
-     again. Any difference fails the run. `--phase19` runs the build and
-     this phase alone (`--phase18 --phase19` both);
+     again. Any difference fails the run;
  20. the sharded step (box2d_mt_tpu_torch/parallel/sharding.py): 512 x
      pyramid(10) x 60 and 256 x car x 60 sharded over [cuda:0, cuda:0],
      two host threads with a CUDA stream each on the one card, and over
@@ -205,8 +175,7 @@ on any failure:
      the unsharded roll (every State leaf and the last step's Events);
      K1, K2 and K3-K6 launched from both threads, counted from 0 before
      the two-shard rolls. For the pyramid: worlds*steps/s unsharded, with
-     1 shard and with 2 shards on the one card, the host syncs a step.
-     `--phase20` runs the build and this phase alone.
+     1 shard and with 2 shards on the one card, the host syncs a step;
  21. the coloring kernel K7 (csrc/coloring.cu) on the main path of the
      benchmark's scale: 512 x pyramid(20) (K = 1024 slots, N = 256
      bodies) for 60 steps inside `trace.collect()`, every coloring of
@@ -214,12 +183,11 @@ on any failure:
      the most active slots, at max_colors 16 and 3 (overflow); its
      launches, counted from 0 before each roll, against the event
      "coloring.kernel" and the colorings ("coloring.runs"), and the host
-     reads a step, and the same for 256 x
-     tumbler(200) x 30 (joints and contacts); K7's times per call as in
-     phase 8 (graph replay, profiler, host), `_luby`'s (events around
-     eager calls) and the bound: the bytes of the call (int64 endpoints,
-     three flag bytes and the int32 color and rank a slot, the overflow)
-     over the HBM rate. `--phase21` runs the build and this phase alone.
+     reads a step, and the same for 256 x tumbler(200) x 30 (joints and
+     contacts); K7's times per call as in phase 8, `_luby`'s (events
+     around eager calls) and the bound: the bytes of the call (int64
+     endpoints, three flag bytes and the int32 color and rank a slot, the
+     overflow) over the HBM rate;
  22. the TOI sub-step kernel K8 (csrc/toi.cu `toi_substep_kernel`) at
      the benchmark's scale: 16 x multithread_demo(2800) for 40 steps
      (2048 lanes a world; the landing's sub-steps) and 512 x pyramid(20)
@@ -227,16 +195,14 @@ on any failure:
      held bit for bit to `toi_substep_passes_plain` on the sub-step with
      the most solved lanes of each; its launches, counted from 0 before
      each roll, against the event "toi.substep_kernel"; its times per call
-     as in phase 8 (graph replay, profiler, host), the plain version's
-     (events around eager calls) and the bound: the bytes K8 must move
-     for the call over the HBM rate. `--phase22` runs the build and this
-     phase alone.
+     as in phase 8, the plain version's (events around eager calls) and
+     the bound: the bytes K8 must move for the call over the HBM rate.
 
-The last lines are the card line, the kernels' JSON record (launches
-counted on each main path: 512 x pyramid(10), 256 x tumbler(200),
-256 x car, phase 16's three rolls, phase 17's three, phase 18's two
-golden batches, phase 19's rolls, phase 20's two-shard rolls and phase
-21's two rolls and phase 22's two, by path and summed) and
+Launches are counted at `cuda_build.call`, by the C entry each launch
+goes through. The last lines are the card line, the kernels' JSON record
+(for each kernel its launches on each path the run rolled, counted from 0
+before the path, and summed; the largest difference from its plain
+version; its times and bound where the run timed it) and
 {"ok": true, "device": {...}}. Nothing is printed as a result, and the
 exit code is not 0, when there is no CUDA device.
 """
@@ -244,6 +210,7 @@ exit code is not 0, when there is no CUDA device.
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -275,20 +242,15 @@ KERNELS = {
 }
 SOURCES = ("solve_middle", "toi", "coloring")    # csrc/<name>.cu, one nvcc each
 SANDWICH_NAMES = ("pack_packed", "vel_iter_packed", "pos_iter_packed", "unpack_packed")
-# one NVIDIA H100 SXM (NVIDIA data sheet): HBM rate and f32 peak
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-L2_BYTES = 50e6
-# f32 operations per unit of work, counted from the kernels' source (sinf
-# and cosf as 20 operations each): K1 per solved lane per velocity and per
-# position iteration; K2 per trip of each of its four loops
-K1_OPS_VEL, K1_OPS_POS = 130, 260
+L2_BYTES = 50e6               # one NVIDIA H100 SXM's L2 cache
+# f32 operations of K2 per trip of each of its four loops, counted from the
+# kernel's source (sinf and cosf as 20 operations each; K1's and the
+# sweeps' are benchmark/roofline.py's K1_OPS_VEL and K1_OPS_POS)
+K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
 # rows of the packed table (52 a lane) that one sweep of a solved lane
 # reads and writes: velocity rows 0-31 and the impulses 47-50, which it
 # writes back; position rows 0-3, 6-9 and 32-46, and it writes min_sep
 K4_ROWS, K5_ROWS = (36, 4), (23, 1)
-K2_OPS = dict(outer=180, gjk=140, push=240, root=140)
 # the CCD scenes held to their C++ goldens (tests/golden/<name>_120.jsonl):
 # bodies in the trace, steps the bound reads, the JAX package's bound
 # (tests/test_golden_zoo.py:117-139); frozen with one set of capacities so
@@ -378,6 +340,18 @@ TYPE_BATCH = ("friction_top_down", "apply_force", "rope_swing", "motor_drive", "
               "pulley_pair", "gear_train")
 # car's body slots: ground, teeter, 20 bridge planks, 5 boxes, chassis, wheels
 CAR_CHASSIS = 27
+# what the run found, for the kernels' record at its end: each kernel's
+# largest difference from its plain version (`keep_worst`), the launches of
+# each path the run rolled, counted from 0 before it (`read_launches`),
+# and each kernel's times where the run timed it
+WORST, PATHS, TIMES = {}, {}, {}
+# the recorded inputs that a later phase times: phase 4's ("main": K1's
+# and K2's) and phase 10's ("sandwich": K3-K6's at the tumbler and the chain)
+INPUTS = {}
+
+
+def keep_worst(name, err):
+    WORST[name] = max(WORST.get(name, 0.0), err)
 
 
 def card_line() -> str:
@@ -424,25 +398,11 @@ def checked_step(*args, **kw):
         return step_batched(*args, **kw)
 
 
-def capture_middle(states, max_colors=MAIN["max_colors"]):
-    """One more step, recording the solve middle's arguments. Returns
-    (arguments, max color overflow of that step)."""
-    import torch
-    from box2d_mt_tpu_torch.ops.solve_middle import solve_middle
-    from box2d_mt_tpu_torch.world import step_batched
-    got = {}
-
-    def middle(*args):
-        got["args"] = args
-        return solve_middle(*args)
-
-    if max_colors != MAIN["max_colors"]:
-        # recolor with this budget: the color cache does not key on max_colors
-        states = dataclasses.replace(states, cache=dataclasses.replace(
-            states.cache, valid=torch.zeros_like(states.cache.valid)))
-    _, ev = step_batched(states, DT, middle=middle,
-                         **dict(MAIN, max_colors=max_colors))
-    return got["args"], int(ev.color_overflow.max())
+def capture_middle(states):
+    """One more step, recording the solve middle's arguments."""
+    rec = Recorder()
+    roll(states, 1, middle=rec.solve_middle)
+    return rec.middle
 
 
 def capture_toi(states, n_steps):
@@ -495,8 +455,8 @@ class Recorder:
                                             int(r[0][-1].sum())))[0]
 
 
-def compare_middle(args, label, phase=2):
-    """Kernel vs plain on the same inputs; returns the max abs error."""
+def compare_middle(args, label, phase):
+    """K1 vs its plain version on the same inputs."""
     import torch
     from box2d_mt_tpu_torch import settings
     from box2d_mt_tpu_torch.ops.solve_middle import solve_middle, solve_middle_plain
@@ -518,13 +478,13 @@ def compare_middle(args, label, phase=2):
         raise AssertionError(f"{label}: kernel disagrees with the plain version: {err}")
     if not torch.equal(ok_k, ok_p):
         raise AssertionError(f"{label}: convergence predicate differs")
-    return max(err.values())
+    keep_worst("solve_middle", max(err.values()))
 
 
-def compare_toi(args, label, min_touching=0, phase=3):
-    """K2 vs its plain version on the same lanes; returns max |dt|. Both
-    run the same arithmetic in the same order (the kernel is built with
-    --fmad=false), so every state and every t must be equal."""
+def compare_toi(args, label, phase, min_touching=1):
+    """K2 vs its plain version on the same lanes. Both run the same
+    arithmetic in the same order (the kernel is built with --fmad=false),
+    so every state and every t must be equal."""
     import torch
     from box2d_mt_tpu_torch.ops import toi as ktoi
     ks, kt = ktoi.time_of_impact_lanes(*args)
@@ -541,29 +501,7 @@ def compare_toi(args, label, min_touching=0, phase=3):
         raise AssertionError(f"{label}: the TOI kernel disagrees with the plain version")
     if touching < min_touching:
         raise AssertionError(f"{label}: {touching} touching lanes, expected >= {min_touching}")
-    return max_dt
-
-
-def golden_lanes(device):
-    """tests/golden/toi.jsonl as time_of_impact_lanes arguments."""
-    import numpy as np
-    import torch
-    rows = [json.loads(line) for line in open(ROOT / "tests/golden/toi.jsonl")]
-    n = len(rows)
-
-    def side(key, sweep_key):
-        verts = np.zeros((2, 8, n), np.float32)
-        sweep = np.zeros((8, n), np.float32)
-        for i, r in enumerate(rows):
-            vs = np.asarray(r[key]["verts"], np.float32)
-            verts[:, :len(vs), i] = vs.T
-            sweep[2:, i] = r[sweep_key]
-        count = np.asarray([len(r[key]["verts"]) for r in rows], np.int32)
-        radius = np.asarray([r[key]["radius"] for r in rows], np.float32)
-        return [torch.from_numpy(x).to(device) for x in (verts, count, radius, sweep)]
-
-    return (*side("a", "sweepA"), *side("b", "sweepB"),
-            torch.ones(n, device=device), torch.ones(n, dtype=torch.bool, device=device))
+    keep_worst("toi", max_dt)
 
 
 def fast_box_worlds(n, device, seed=0):
@@ -691,9 +629,11 @@ def show(m, n_bytes=0):
             f"{m['host_ms']:.4f} ms, events around eager calls {m['wrapper_ms']:.4f} ms")
 
 
+@functools.cache
 def launch_floor():
     """The times of an empty kernel (one warp, no argument read), launched
-    as the port's kernels are: what any launch costs on this card."""
+    as the port's kernels are: what any launch costs on this card (measured
+    once a process)."""
     import ctypes
     import torch
     from box2d_mt_tpu_torch import cuda_build
@@ -707,39 +647,28 @@ def launch_floor():
     return measure(launch, ())
 
 
-def bound(n_bytes, ops):
-    """The least time (ms) the card could take, and what bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def least_ms(n_bytes, ops=0):
+    """The least time (ms) the card could take by benchmark/roofline.py's
+    peaks, and what bounds it ("bytes" or "operations")."""
+    from benchmark import roofline
+    by_ops = ops / roofline.F32_FLOP_PER_S > n_bytes / roofline.HBM_BYTES_PER_S
+    return 1e3 * roofline.bound_seconds(n_bytes, ops), "operations" if by_ops else "bytes"
 
 
-def k1_bytes(args):
-    """Bytes K1 must move for these inputs, each read or written once: the
-    blob rows, perm and dyn_ab entries of the solved lanes
-    (color_start[:, -1] a world), color_start, the body planes and the
-    movable flags in; the body planes and the (W, 5, C) aux out."""
-    blob, perm, color_start, dyn_ab, vel, pos, movable = args[:7]
-    nw, rows, nc = blob.shape
-    solved = int(color_start[:, -1].sum())
-    planes = (vel.numel() + pos.numel()) * vel.element_size()
-    inputs = (solved * (rows * blob.element_size() + perm.element_size()
-                        + dyn_ab.element_size())
-              + color_start.numel() * color_start.element_size()
-              + planes + movable.numel() * movable.element_size())
-    return inputs + planes + nw * 5 * nc * blob.element_size()
+def arg_infos(args):
+    """A kernel call's arguments as benchmark/roofline.py counts them: an
+    ArgInfo each, built as the benchmark's recorder builds them."""
+    from benchmark.tracing import CallRecorder
+    return [CallRecorder._info(a) for a in args]
 
 
-def k2_bytes(args):
-    """Bytes K2 must move for these lanes, each read or written once:
-    `active`, `t_max`, the state and t of every lane; for an active lane
-    also both counts, radii and sweep rows, and each proxy's own vertices
-    (count x 2 floats, not the 8 slots)."""
-    va, ca, ra, sa, vb, cb, rb, sb, t_max, active = args
-    n, n_on = active.shape[0], int(active.sum())
-    n_verts = int(ca[active].sum()) + int(cb[active].sum())
-    every = n * (active.element_size() + t_max.element_size() + 4 + 4)
-    per_on = 2 * (ca.element_size() + ra.element_size() + sa.shape[0] * sa.element_size())
-    return every + n_on * per_on + n_verts * 2 * va.element_size()
+def k1_bound(args):
+    """K1's bytes for this call and its least time (`least_ms`), counted by
+    benchmark/roofline.py as the benchmark's k1_roofline counts them."""
+    from benchmark import roofline
+    info = arg_infos(args)
+    n_bytes = roofline.k1_bytes(info)
+    return n_bytes, least_ms(n_bytes, roofline.k1_ops(info))
 
 
 def costliest_lane(lanes):
@@ -755,19 +684,20 @@ def costliest_lane(lanes):
     return (*lanes[:-1], only)
 
 
-def time_toi(lanes, floor, label, phase=8):
+def time_toi(lanes, label, phase):
     """K2's times on one set of lanes (see `measure`), the plain version's,
     the loop trips and the bound; prints one line and returns them."""
-    import torch
+    from benchmark import roofline
     from box2d_mt_tpu_torch.ops import toi as ktoi
     m = measure(ktoi.time_of_impact_lanes, lanes)
+    floor = launch_floor()
     plain = time_call(ktoi.time_of_impact_lanes_plain, lanes, reps=3)
     stats = {}
     state, _ = ktoi.time_of_impact_lanes_plain(*lanes, stats=stats)
     trips = {k: int(v.sum()) for k, v in stats.items()}
     most = {k: int(v.max()) for k, v in stats.items()}
-    n_bytes = k2_bytes(lanes)
-    bnd = bound(n_bytes, sum(K2_OPS[k] * n for k, n in trips.items()))
+    n_bytes = roofline.k2_bytes(arg_infos(lanes))
+    bnd = least_ms(n_bytes, sum(K2_OPS[k] * n for k, n in trips.items()))
     active = int(lanes[-1].sum())
     print(f"phase {phase} toi [{label}, {lanes[-1].shape[0]} lanes, {active} active, "
           f"{int((state == 3).sum())} touching]: {show(m, n_bytes)}; "
@@ -817,12 +747,12 @@ class SandwichRecorder:
         return self.steps[max(range(len(lanes)), key=lanes.__getitem__)]
 
 
-def compare_sandwich(step, label, phase=10):
+def compare_sandwich(step, label, phase):
     """Each of K3-K6 against its plain version on one recorded step.
     Both start every comparison from the same packed table: the plain
     pack's (unused positions 0), then advanced by replaying the step's
-    kernel launches. Returns {kernel name: max abs error} and the inputs
-    of each kernel's first call (for timing)."""
+    kernel launches. Returns the inputs of each kernel's first call (for
+    timing)."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     blob, perm, cs, dyn = step["blob"], step["perm"], step["color_start"], step["dyn_ab"]
@@ -866,13 +796,15 @@ def compare_sandwich(step, label, phase=10):
     if max(pos_errs) > 1e-5 or max(err.values()) > 1e-4:
         raise AssertionError(f"{label}: a sandwich kernel disagrees with its "
                              f"plain version: {err}")
-    return err, first
+    for name, e in err.items():
+        keep_worst(name, e)
+    return first
 
 
 def sweep_path(args):
     """Which way K4 takes these inputs: its launch shape, whether a world's
     lanes outgrow the shared-memory buffers (the ring turns), and how
-    many chunks the overflow color has."""
+    many chunks the overflow color has (a line of text)."""
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     blob, perm, cs, _, vel = args[:5]
     shape = sm.sweep_shape(vel.shape[-1], perm.shape[-1], cs.shape[-1] - 1)
@@ -883,14 +815,14 @@ def sweep_path(args):
     return (f"{shape.threads_per_world} threads a world, {shape.worlds_per_block} worlds "
             f"a block, tile {shape.tile}, {staging}, overflow color {overflow} lanes "
             f"in {-(-overflow // sm.CK)} chunks, K6 (worlds a block, blocks a world) "
-            f"{sm.unpack_shape(*perm.shape)}"), tiles > shape.n_buffers, overflow
+            f"{sm.unpack_shape(*perm.shape)}")
 
 
 def middle_path(args):
     """Which way K1 takes these inputs: its path and launch shape, and the
     chain of passes its busiest world runs: a sweep passes through each
     non-empty color (each chunk of the overflow color), once more for
-    each tile border that splits one on the ring path."""
+    each tile border that splits one on the ring path (a line of text)."""
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     blob, perm, cs, _, vel, _, _, _, vi, pi = args
     shape = sm.middle_shape(vel.shape[-1], perm.shape[-1], cs.shape[-1] - 1)
@@ -906,13 +838,13 @@ def middle_path(args):
             f"a block of {shape.threads_per_world} threads a world"
             f"{'' if shape.resident else f', tiles of {tile} lanes'}; busiest world: "
             f"{total} lanes in {colors} non-empty colors, {passes} passes a sweep x "
-            f"{vi + pi} sweeps = {passes * (vi + pi)} passes"), shape.resident
+            f"{vi + pi} sweeps = {passes * (vi + pi)} passes")
 
 
-def sandwich_vs_k1(args, label, exact, phase=9):
+def sandwich_vs_k1(args, label, phase):
     """K3 -> vi x K4 -> integrate_positions -> pi x K5 -> K6 against K1 on
-    the inputs of a joint-free batch; returns the max abs error. Both
-    apply an overflow chunk in lane order, so `exact` asks for 0."""
+    the inputs of a joint-free batch, to the bit: both run one sweep
+    implementation and apply an overflow chunk in lane order."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     from box2d_mt_tpu_torch.ops.integrate import integrate_positions
@@ -932,13 +864,12 @@ def sandwich_vs_k1(args, label, exact, phase=9):
     err = {"pos": (pos - k_pos).abs().max().item(), "vel": (vel - k_vel).abs().max().item(),
            "aux": (aux - k_aux).abs().max().item()}
     print(f"phase {phase} sandwich vs K1 [{label}] max|diff| pos={err['pos']:.3g} "
-          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; K1: {middle_path(args)[0]}; "
-          f"K4: {sweep_path(args)[0]}")
-    if err["pos"] > 1e-5 or err["vel"] > 1e-4 or err["aux"] > 1e-4:
-        raise AssertionError(f"{label}: the sandwich disagrees with K1: {err}")
-    if exact and max(err.values()) != 0.0:
+          f"vel={err['vel']:.3g} impulse/min_sep={err['aux']:.3g}; K1: {middle_path(args)}; "
+          f"K4: {sweep_path(args)}")
+    if max(err.values()) != 0.0:
         raise AssertionError(f"{label}: the sandwich must equal K1 to the bit: {err}")
-    return max(err.values())
+    for name in SANDWICH_NAMES:
+        keep_worst(name, 0.0)
 
 
 def sandwich_bytes(first):
@@ -985,78 +916,13 @@ def library_calls(first):
             "unpack_packed": (lambda: torch.zeros_like(rows).scatter_(2, idx5, rows), ())}
 
 
-def kernels_per_step(states, n_steps=3, **kw):
-    """CUDA kernels and copies per step over a short profiled window, or
-    None when the profiler reports no device activity."""
+def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase, toi=None,
+                    on_step=None):
+    """The sandwich's main path on one joint scene: launch counts and
+    health; `toi` is step_batched's time-of-impact hook, and
+    `on_step(states, events)` runs after each step. Returns (the launches,
+    the recorder)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        roll(states, n_steps, **kw)
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return n / n_steps if n else None
-
-
-def phase_split(states, n_steps=5, refresh=False, **kw):
-    """ms a step spent in the collide phase, the solve middle and the TOI
-    phase over n_steps, each phase timed between two synchronizations (so
-    none of them overlaps the host's launches with the device's work),
-    beside the synchronized step's ms. `refresh`: also the pair refresh
-    (every `find_pairs` call of the step) and the rest of the post-solve
-    phase (sleep, AABB sync, carry-over) apart."""
-    import torch
-    from box2d_mt_tpu_torch import world
-    names = {"_collide_b": "collide", "_solve_middle_b": "solve middle",
-             "_solve_sandwich_b": "solve middle", "_continuous": "TOI phase"}
-    if refresh:
-        names["_post_solve_b"] = "post-solve"
-    saved = {n: getattr(world, n) for n in names}
-    spent = dict.fromkeys(names.values(), 0.0)
-    if refresh:
-        spent["pair refresh"] = 0.0
-    finder = world.broadphase.find_pairs
-
-    def timed(label, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[label] += time.perf_counter() - t0
-            return out
-        return call
-
-    for n, fn in saved.items():
-        setattr(world, n, timed(names[n], fn))
-    if refresh:
-        world.broadphase.find_pairs = timed("pair refresh", finder)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        roll(states, n_steps, **kw)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for n, fn in saved.items():
-            setattr(world, n, fn)
-        world.broadphase.find_pairs = finder
-    if refresh:
-        # the refresh inside the post-solve phase is timed in both
-        spent["post-solve"] = max(0.0, spent["post-solve"] - spent["pair refresh"])
-        spent["rest of post-solve"] = spent.pop("post-solve")
-    split = ", ".join(f"{k} {1e3 * v / n_steps:.2f}" for k, v in spent.items())
-    return f"{1e3 * total / n_steps:.2f} ms a step ({split} ms; synchronized split)"
-
-
-def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=None,
-                    split=False, on_step=None):
-    """The sandwich's main path on one joint scene: launch counts, health,
-    speed; `toi` is step_batched's time-of-impact hook, `split` adds the
-    phase split of five more steps, and `on_step(states, events)` runs
-    after each step. Returns (record of the run, the recorder)."""
-    import torch
-    roll(joint_batch(scene, size, min(n_worlds, 8), dev), 3)    # first-use allocations
     states = joint_batch(scene, size, n_worlds, dev)
     rec = SandwichRecorder()
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1066,41 +932,33 @@ def run_joint_scene(scene, size, n_worlds, n_steps, dev, inside, phase=10, toi=N
         if on_step is not None:
             on_step(st, ev)
 
+    label = f"{n_worlds} x {scene}({'' if size is None else size})"
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, sandwich=rec.hook(), toi=toi)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi", "color_walk")
+    launches = read_launches(path=f"{label} x {n_steps}")
     n = len(rec.steps)                       # steps that solved
     want = dict(pack_packed=n, vel_iter_packed=MAIN["velocity_iterations"] * n,
                 pos_iter_packed=MAIN["position_iterations"] * n, unpack_packed=n,
                 solve_middle=0)
-    label = f"{n_worlds} x {scene}({'' if size is None else size})"
     if n <= 0 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError(f"{label}: NaN/inf in the body state")
     inside(states)
-    per_step = kernels_per_step(states)
-    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
-          f"{n_worlds * n_steps / elapsed:.1f} worlds*steps/s, launches={launches}, "
-          f"host syncs/step={syncs / n_steps:.2f}, CUDA kernels+copies/step="
-          f"{'not measured' if per_step is None else f'{per_step:.0f}'}, "
-          f"max color overflow={int(overflow)}, "
+    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: launches={launches}, "
+          f"host syncs/step={syncs / n_steps:.2f}, max color overflow={int(overflow)}, "
           f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
           f"awake bodies/world={float((b.awake & (b.body_type == 2)).sum(1).float().mean()):.1f}")
-    if split:
-        print(f"phase {phase} {label}, the next 5 steps: {phase_split(states)}")
     return launches, rec
 
 
 def ccd_goldens(dev):
-    """The three CCD scenes as one batch of worlds on the card, through K2,
-    against their C++ traces over the steps each bound reads; returns
-    their worst errors and the recorder of the roll's K2 calls."""
+    """Phase 13: the three CCD scenes as one batch of worlds on the card,
+    through K2, against their C++ traces over the steps each bound reads;
+    K2 against its plain version on the roll's busiest round."""
     import numpy as np
     import torch
     from box2d_mt_tpu_torch.models import scenes
@@ -1121,23 +979,22 @@ def ccd_goldens(dev):
                                  ev.toi_begin.any(1).to(torch.float32)], -1)[:, None])
     got = torch.stack(kept[0::2]).cpu().numpy()          # (step, world, body, 3)
     flags = torch.stack(kept[1::2]).cpu().numpy()[:, :, 0]
-    launches = read_launches("toi")["toi"]
+    launches = read_launches(path=f"CCD goldens x {steps}")["toi"]
     if launches <= 0 or launches != len(rec.toi):
         raise AssertionError(f"CCD scenes: {launches} K2 launches for {len(rec.toi)} calls")
-    worst = {}
     for w, (name, (n_bodies, n_steps, limit)) in enumerate(CCD_GOLDENS.items()):
         ref = np.asarray([[rb[:3] for rb in json.loads(line)["bodies"]]   # x, y, angle
                           for line in open(ROOT / f"tests/golden/{name}_120.jsonl")])
         mine = got[:n_steps, w, n_bodies - 1::-1]        # reverse creation order
-        worst[name] = float(np.abs(mine - ref[:n_steps]).max())
+        err = float(np.abs(mine - ref[:n_steps]).max())
         overflow, impact = flags[:n_steps, w, 0].max(), flags[:n_steps, w, 1].max()
         print(f"phase 13 {name} on the card, steps 0-{n_steps - 1}: worst error "
-              f"{worst[name]:.3g} (bound {limit}), color overflow {int(overflow)}, "
+              f"{err:.3g} (bound {limit}), color overflow {int(overflow)}, "
               f"TOI impact {bool(impact)}")
-        if not worst[name] < limit or overflow != 0 or not impact:
+        if not err < limit or overflow != 0 or not impact:
             raise AssertionError(f"{name}: the C++ golden is not met")
     print(f"phase 13 K2 launches in the {steps}-step roll: {launches}")
-    return worst, rec
+    compare_toi(rec.busiest_toi(), "CCD scenes, busiest round", phase=13)
 
 
 def lanes_by_mtype(blob, perm, color_start):
@@ -1184,14 +1041,13 @@ class CircleRecorder(Recorder):
         return self.toi[max(range(len(n)), key=n.__getitem__)][0], max(n)
 
 
-def circle_stack(dev, floor):
+def circle_stack(dev):
     """512 x sphere_stack(10) x 120 steps: K1 on circle-circle lanes, K2 on
-    circle proxies against the edge ground. Returns the kernels' errors
-    against their plain versions and the launches of the run."""
+    circle proxies against the edge ground, each held to its plain version
+    and timed there."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     n_worlds, n_steps = 512, 120
-    roll(joint_batch("sphere_stack", 10, 8, dev), 3)        # first-use allocations
     states = joint_batch("sphere_stack", 10, n_worlds, dev)
     rec = CircleRecorder()
     bad = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1202,14 +1058,12 @@ def circle_stack(dev, floor):
 
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi", "color_walk")
+    launches = read_launches(path=f"{n_worlds} x sphere_stack(10) x {n_steps}")
     b = states.bodies
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("solve_middle", "toi", "color_walk")) <= 0:
         raise AssertionError(f"sphere_stack did not launch every kernel: {launches}")
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("sphere_stack: NaN/inf in the body state")
@@ -1218,44 +1072,34 @@ def circle_stack(dev, floor):
     low = float(b.c[:, 1:11, 1].min())
     if not low > 0.5:
         raise AssertionError(f"sphere_stack: a circle fell through: center y {low}")
-    per_step = kernels_per_step(states)
-    split = phase_split(states)
     print(f"phase 14 {n_worlds} x sphere_stack(10) x {n_steps} steps, continuous=True: "
-          f"{elapsed:.3f} s, {n_worlds * n_steps / elapsed:.1f} worlds*steps/s, "
-          f"launches={launches}, host syncs/step={syncs / n_steps:.2f}, CUDA "
-          f"kernels+copies/step={'not measured' if per_step is None else f'{per_step:.0f}'}, "
+          f"launches={launches}, host syncs/step={syncs / n_steps:.2f}, "
           f"lowest circle center y={low:.4f}, "
-          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}; "
-          f"the next 5 steps: {split}")
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}")
     args, by_type = rec.most_circles()
     if by_type["e_circles"] <= 0:
         raise AssertionError("sphere_stack: no e_circles lane was solved")
-    err_k1 = compare_middle(args, f"512 x sphere_stack(10), the step with most e_circles "
-                                  f"lanes, solved lanes by type {by_type}", phase=14)
+    compare_middle(args, f"512 x sphere_stack(10), the step with most e_circles "
+                         f"lanes, solved lanes by type {by_type}", phase=14)
     lanes, n_circle = rec.most_circle_proxies()
     counts = proxy_counts(lanes)
-    err_k2 = compare_toi(lanes, f"512 x sphere_stack(10), the round with most circle-proxy "
-                                f"lanes ({n_circle}), active lanes by (vertices of A, of B) "
-                                f"{counts}", min_touching=1, phase=14)
+    compare_toi(lanes, f"512 x sphere_stack(10), the round with most circle-proxy "
+                       f"lanes ({n_circle}), active lanes by (vertices of A, of B) "
+                       f"{counts}", phase=14)
     if n_circle <= 0:
         raise AssertionError("sphere_stack: no circle proxy reached K2")
     m = measure(sm.solve_middle, args)
-    solved = int(args[2][:, -1].sum())
-    bnd = bound(k1_bytes(args), solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
-                                          + MAIN["position_iterations"] * K1_OPS_POS))
-    print(f"phase 14 solve_middle [512 x sphere_stack(10), {solved} solved lanes]: "
-          f"{show(m, k1_bytes(args))}; bound {bnd[0]:.5f} ms ({bnd[1]}; device time at "
-          f"{100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)[0]}")
-    time_toi(lanes, floor, "512 x sphere_stack(10), the circle round", phase=14)
-    return err_k1, err_k2, launches
+    n_bytes, bnd = k1_bound(args)
+    print(f"phase 14 solve_middle [512 x sphere_stack(10), {int(args[2][:, -1].sum())} solved "
+          f"lanes]: {show(m, n_bytes)}; bound {bnd[0]:.5f} ms ({bnd[1]}: {n_bytes} B; device "
+          f"time at {100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)}")
+    time_toi(lanes, "512 x sphere_stack(10), the circle round", phase=14)
 
 
 def pinball_table(dev):
     """256 x pinball x 240 steps: the sandwich K3-K6 on a joint world with
-    a bullet circle in a chain loop, and K2 against the chain's edges.
-    Returns the sandwich's errors against the plain versions and the
-    launches of the run."""
-    import torch
+    a bullet circle in a chain loop, and K2 against the chain's edges;
+    K3-K6 held to their plain versions on its busiest step."""
 
     def ball_inside(states):
         c = states.bodies.c[:, 3]                     # ground, flippers, ball
@@ -1270,9 +1114,8 @@ def pinball_table(dev):
     step = rec.busiest()
     by_type = dict(zip(MTYPES, lanes_by_mtype(step["blob"], step["perm"],
                                               step["color_start"]).tolist()))
-    err, _ = compare_sandwich(step, f"256 x pinball, busiest step, solved lanes by type "
-                                    f"{by_type}", phase=14)
-    return err, launches
+    compare_sandwich(step, f"256 x pinball, busiest step, solved lanes by type {by_type}",
+                     phase=14)
 
 
 def zoo_goldens(dev):
@@ -1320,7 +1163,6 @@ def zoo_goldens(dev):
 
     print(f"phase 14 zoo goldens: {len(names)} worlds in one batch, each leaving it when "
           f"its window ends, {max(window)} steps ({elapsed:.3f} s)")
-    worst = {}
     for w, (name, (_, _, trace, n_bodies, n_steps, limit, last)) in enumerate(
             ZOO_GOLDENS.items()):
         ref = [json.loads(line) for line in open(ROOT / f"tests/golden/{trace}.jsonl")]
@@ -1365,7 +1207,6 @@ def zoo_goldens(dev):
             print(f"phase 14 golden {name}, steps 0-{n_steps - 1}: worst error "
                   f"{errs.max():.3g} (bound {limit}), last step {errs[-1]:.3g} "
                   f"(bound {last}){extra}, color overflow {int(overflow)}")
-            worst[name] = float(errs.max())
         if not ok or overflow != 0:
             raise AssertionError(f"{name}: the C++ golden is not met")
     # falling_circle: 6 velocity and 2 position iterations
@@ -1381,7 +1222,6 @@ def zoo_goldens(dev):
           f"{errs.max():.3g} (bound 0.5), last step {errs[-1]:.3g} (bound 0.2)")
     if not (errs.max() < 0.5 and errs[-1] < 0.2):
         raise AssertionError("falling_circle: the C++ golden is not met")
-    return worst
 
 
 def alike(builders, dev):
@@ -1427,9 +1267,7 @@ def car_path(dev):
     """256 x car x 120 steps, continuous=True: K3-K6 on the car's contacts
     and K2 on its wheels against the edge terrain. K3-K6 against their
     plain versions on the busiest step, K2 on the busiest round; car's
-    C++ golden on world 0, rolled on alone for its last 120 steps.
-    Returns the launches, the sandwich's errors, K2's and phase 20's
-    reference of the car (sharded_path's `refs`)."""
+    C++ golden on world 0, rolled on alone for its last 120 steps."""
     def on_course(states):
         b = states.bodies
         low = float(b.c[..., 1][b.body_type == 2].min())
@@ -1440,20 +1278,17 @@ def car_path(dev):
                                  f"did not drive off (y {low}, chassis x {ahead})")
 
     import torch
-    kept, last, ref = [], [], []
-    ref_steps = next(n for scene, _, _, n, _ in SHARDED if scene == "car")
+    kept, last = [], []
 
     def keep(st, ev):
         # world 0's poses: the first half of car's golden roll
         b = st.bodies
         kept.append((torch.cat([b.xf_p[:1], b.a[:1, :, None]], -1), ev.color_overflow[:1]))
         last[:] = [st]
-        if len(kept) == ref_steps:
-            ref[:] = [st, ev]
 
     rec_toi = Recorder()
     launches, rec = run_joint_scene("car", None, 256, 120, dev, on_course, phase=15,
-                                    toi=rec_toi.time_of_impact, split=True, on_step=keep)
+                                    toi=rec_toi.time_of_impact, on_step=keep)
     if launches["toi"] <= 0:
         raise AssertionError(f"car: K2 was not launched: {launches}")
     # the golden's other 120 steps on world 0 alone. The JAX test steps car
@@ -1470,11 +1305,9 @@ def car_path(dev):
     step = rec.busiest()
     by_type = dict(zip(MTYPES, lanes_by_mtype(step["blob"], step["perm"],
                                               step["color_start"]).tolist()))
-    err, _ = compare_sandwich(step, f"256 x car, busiest step, solved lanes by type "
-                                    f"{by_type}", phase=15)
-    err_k2 = compare_toi(rec_toi.busiest_toi(), "256 x car, busiest round", min_touching=1,
-                         phase=15)
-    return launches, err, err_k2, (*ref, None, None, ref_steps)
+    compare_sandwich(step, f"256 x car, busiest step, solved lanes by type {by_type}",
+                     phase=15)
+    compare_toi(rec_toi.busiest_toi(), "256 x car, busiest round", phase=15)
 
 
 def joint_types(dev, copies=4, compare_steps=20):
@@ -1484,7 +1317,7 @@ def joint_types(dev, copies=4, compare_steps=20):
     trace, the mouse box within 0.1 m of its target by step 120. Its
     first compare_steps steps again through the plain versions, held to
     the kernel path at that step (phase 11's rules). Rolled in inference
-    mode; raises when a check fails. Returns the worst errors."""
+    mode; raises when a check fails."""
     import torch
     from box2d_mt_tpu_torch import settings
     from box2d_mt_tpu_torch.ops import solve_middle as sm
@@ -1534,25 +1367,23 @@ def joint_types(dev, copies=4, compare_steps=20):
         raise AssertionError(f"joint types: kernel path and plain path disagree: {d}")
     if within is None or within > 120:
         raise AssertionError(f"the mouse box did not reach its target by step 120: {gaps}")
-    return held_to_goldens(TYPE_BATCH, kept, el_ker)
+    held_to_goldens(TYPE_BATCH, kept, el_ker)
 
 
 def held_to_goldens(names, kept, elapsed, phase=15):
     """World w of the roll `kept` (per step: poses (W, N, 3) and color
     overflow (W,)) against the C++ trace of JOINT_GOLDENS[names[w]];
-    raises when a bound is missed. Returns the worst errors."""
+    raises when a bound is missed."""
     import numpy as np
     import torch
     got = torch.stack([p for p, _ in kept]).cpu().numpy()         # (step, world, body, 3)
     overflow = torch.stack([o for _, o in kept]).cpu().numpy()      # (step, world)
-    worst = {}
     for w, name in enumerate(names):
         trace, n_bodies, limit, early, last = JOINT_GOLDENS[name]
         ref = np.asarray([[rb[:3] for rb in json.loads(line)["bodies"]]
                           for line in open(ROOT / f"tests/golden/{trace}.jsonl")])
         errs = np.abs(got[:, w, n_bodies - 1::-1] - ref[:240]).max((1, 2))
         read = 240 if limit is not None or last is not None else early[0]
-        worst[name] = float(errs[:read].max())
         ok = ((limit is None or errs.max() < limit)
               and (early is None or errs[:early[0]].max() < early[1])
               and (last is None or errs[-1] < last) and overflow[:read, w].sum() == 0)
@@ -1567,7 +1398,6 @@ def held_to_goldens(names, kept, elapsed, phase=15):
               f"{int(overflow[:, w].sum())} in all")
         if not ok:
             raise AssertionError(f"{name}: the C++ golden is not met")
-    return worst
 
 
 # phase 16's large single worlds (the load the reference's multithreading
@@ -1642,68 +1472,54 @@ def grid_vs_allpairs(dev):
             raise AssertionError(f"step {step}: 2 slots a bucket did not overflow cleanly")
 
 
-def large_path(name, dev, inside, phase="16"):
+def large_path(name, dev, inside, phase):
     """One large scene's path, LARGE[name] worlds and steps through K1 and
     K2, counted from 0 just before the roll: no NaN, no pair overflow,
-    `inside(states)`; worlds*steps/s, host syncs and CUDA kernels a step,
-    the launches, K1's path and the phase split with the pair refresh
-    apart. Returns (launches, the recorder, the final states)."""
+    `inside(states)`; host syncs a step, the launches and K1's path.
+    Returns the recorder."""
     import torch
     from box2d_mt_tpu_torch.state import replicate
     _, n_worlds, n_steps = LARGE[name]
-    one = large_scene(name, dev)
-    roll(replicate(one, 2), 2)                         # first-use allocations
-    states = replicate(one, n_worlds)
+    states = replicate(large_scene(name, dev), n_worlds)
     rec = Recorder()
-    worst = torch.zeros(2, dtype=torch.int32, device=dev)
+    over = torch.zeros(2, dtype=torch.int32, device=dev)
 
     def check(st, ev):
-        worst.copy_(torch.maximum(worst, torch.stack([ev.pair_overflow.max(),
-                                                      ev.color_overflow.max()])))
+        over.copy_(torch.maximum(over, torch.stack([ev.pair_overflow.max(),
+                                                    ev.color_overflow.max()])))
 
+    label = large_label(name)
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, check=check, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches()
-    label = large_label(name)
+    launches = read_launches(path=f"{label} x {n_steps}")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError(f"{label}: NaN/inf in the body state")
-    pair_overflow, color_overflow = worst.tolist()
+    pair_overflow, color_overflow = over.tolist()
     if launches["solve_middle"] <= 0 or launches["toi"] <= 0:
         raise AssertionError(f"{label}: K1 or K2 was not launched: {launches}")
     inside(states)
-    per_step = kernels_per_step(states)
-    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: {elapsed:.3f} s, "
-          f"{n_worlds * n_steps / elapsed:.2f} worlds*steps/s, launches={launches}, "
-          f"host syncs/step={syncs / n_steps:.2f}, CUDA kernels+copies/step="
-          f"{'not measured' if per_step is None else f'{per_step:.0f}'}, "
+    print(f"phase {phase} {label} x {n_steps} steps, continuous=True: launches={launches}, "
+          f"host syncs/step={syncs / n_steps:.2f}, "
           f"max pair overflow={pair_overflow}, max color overflow={color_overflow}, "
           f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}; "
-          f"K1 (last step): {middle_path(rec.middle)[0]}")
-    print(f"phase {phase} {label}, the next 3 steps: "
-          f"{phase_split(states, n_steps=3, refresh=True)}")
+          f"K1 (last step): {middle_path(rec.middle)}")
     if pair_overflow:
         raise AssertionError(f"{label}: pair overflow {pair_overflow}")
-    return launches, rec, states
+    return rec
 
 
 def k1_time(args, label):
     """16(g): K1's device time (graph replay) and bound on recorded inputs."""
     from box2d_mt_tpu_torch.ops.solve_middle import solve_middle
     m = measure(solve_middle, args, profiler=False)
-    solved = int(args[2][:, -1].sum())
-    n_bytes = k1_bytes(args)
-    bnd = bound(n_bytes, solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
-                                   + MAIN["position_iterations"] * K1_OPS_POS))
-    print(f"phase 16(g) solve_middle [{label}, {solved} solved lanes]: {show(m, n_bytes)}; "
-          f"bound {bnd[0]:.5f} ms ({bnd[1]}: {n_bytes} B; device time at "
-          f"{100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)[0]}")
-    return m, bnd
+    n_bytes, bnd = k1_bound(args)
+    print(f"phase 16(g) solve_middle [{label}, {int(args[2][:, -1].sum())} solved lanes]: "
+          f"{show(m, n_bytes)}; bound {bnd[0]:.5f} ms ({bnd[1]}: {n_bytes} B; device time at "
+          f"{100 * bnd[0] / m['ms']:.2f}% of it); {middle_path(args)}")
 
 
 def many_bodies_variants(dev):
@@ -1779,8 +1595,7 @@ def large_goldens(dev):
 
 def large_worlds(dev):
     """Phase 16: the grid pair finder and the worlds whose bodies outgrow
-    a block's shared memory. Returns the launches of the three paths and
-    K1's times at multithread_demo(2800) and many_bodies(10000)."""
+    a block's shared memory."""
     import torch
     from box2d_mt_tpu_torch.ops import solve_middle as sm
     grid_vs_allpairs(dev)
@@ -1805,32 +1620,25 @@ def large_worlds(dev):
         if not low > 0.4:
             raise AssertionError(f"a box fell through the ground: center y {low}")
 
-    launches, times = {}, {}
-    launches["multithread_demo"], rec, _ = large_path("multithread_demo", dev,
-                                                      boxes_in_container, "16(b)")
-    times["multithread_demo"] = k1_time(rec.middle, f"{large_label('multithread_demo')}, "
-                                                    "last step")
+    rec = large_path("multithread_demo", dev, boxes_in_container, "16(b)")
+    k1_time(rec.middle, f"{large_label('multithread_demo')}, last step")
     del rec
-    launches["tiles"], rec, _ = large_path("tiles", dev, boxes_on_tiles, "16(c)")
-    del rec
-    launches["many_bodies"], rec, _ = large_path("many_bodies", dev, boxes_above_ground,
-                                                 "16(d)")
+    large_path("tiles", dev, boxes_on_tiles, "16(c)")
+    rec = large_path("many_bodies", dev, boxes_above_ground, "16(d)")
     args = rec.middle
     shapes = (sm.middle_shape(args[4].shape[-1], args[0].shape[-1], args[2].shape[-1] - 1),
               sm.sweep_shape(args[4].shape[-1], args[0].shape[-1], args[2].shape[-1] - 1))
     if not all(shape.global_planes for shape in shapes):
         raise AssertionError("many_bodies(10000) did not take the global planes")
     label = large_label("many_bodies")
-    err_k1 = compare_middle(args, f"{label}, last step", phase="16(d)")
-    err_k2 = compare_toi(rec.busiest_toi(), f"{label}, busiest round", min_touching=1,
-                         phase="16(d)")
-    err_sw = sandwich_vs_k1(args, f"{label}, last step", exact=True, phase="16(d)")
-    times["many_bodies"] = k1_time(args, f"{label}, last step")
+    compare_middle(args, f"{label}, last step", phase="16(d)")
+    compare_toi(rec.busiest_toi(), f"{label}, busiest round", phase="16(d)")
+    sandwich_vs_k1(args, f"{label}, last step", phase="16(d)")
+    k1_time(args, f"{label}, last step")
     del rec, args
     torch.cuda.empty_cache()
     many_bodies_variants(dev)
     large_goldens(dev)
-    return launches, times, err_k1, err_k2, err_sw
 
 
 # ---- phase 17: the PreSolve hook and between-step mutations
@@ -1884,29 +1692,28 @@ class BusiestRecorder(Recorder):
 
 
 def hook_path(name, dev):
-    """17(a): one hook world's path through K1 and K2, launches from 0."""
+    """17(a): one hook world's path through K1 and K2, launches from 0;
+    the conveyor also without its hook and with a hook that changes
+    nothing, which must roll as without it."""
     import torch
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.state import replicate
     n_worlds, n_steps = HOOK_PATHS[name]
     hook = HOOKS[name]
+    label = f"{n_worlds} x {name}"
     one = getattr(scenes, name)(device=dev)
-    roll(replicate(one, 4), 3, pre_solve_fn=hook)       # first-use allocations
     start = replicate(one, n_worlds)
     rec = BusiestRecorder()
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
     states, syncs = roll(start, n_steps, pre_solve_fn=hook, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi", "color_walk")
-    label = f"{n_worlds} x {name}"
+    launches = read_launches(path=f"{label} x {n_steps} (hook)")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError(f"{label}: NaN/inf in the body state")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("solve_middle", "toi", "color_walk")) <= 0:
         raise AssertionError(f"{label}: K1, K2 or K7 was not launched: {launches}")
     if name == "conveyor_belt":
         moved = float((b.c[:, 2:7, 0] - start.bodies.c[:, 2:7, 0]).min())
@@ -1918,44 +1725,20 @@ def hook_path(name, dev):
         check = f"actor y in [{float(y.min()):.4f}, {float(y.max()):.4f}]"
         if not float((y - 11.005).abs().max()) < 0.05:
             raise AssertionError(f"{label}: the actor is not on the platform: {check}")
-    per_step = kernels_per_step(states, pre_solve_fn=hook)
-    out = dict(launches=launches, ws=n_worlds * n_steps / elapsed, syncs=syncs / n_steps,
-               kernels=per_step)
     print(f"phase 17(a) {label} x {n_steps} steps with its hook, continuous=True: "
-          f"{elapsed:.3f} s, {out['ws']:.1f} worlds*steps/s, launches={launches}, "
-          f"host syncs/step={out['syncs']:.2f}, CUDA kernels+copies/step="
-          f"{'not measured' if per_step is None else f'{per_step:.0f}'}; {check}")
+          f"launches={launches}, host syncs/step={syncs / n_steps:.2f}; {check}")
     if name == "conveyor_belt":
-        # the roll without the hook, where the boxes settle on a still
-        # platform and sleep, and with a hook that changes nothing (the same
-        # motion): the hook's own cost is the second against the first
-        rolls = {}
-        for kind, kw in (("without the hook", {}),
-                         ("with a hook that changes nothing",
-                          dict(pre_solve_fn=lambda st, v: {"tangent_speed": v.tangent_speed}))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            end, n_syncs = roll(replicate(one, n_worlds), n_steps, **kw)
-            torch.cuda.synchronize()
-            rolls[kind] = (time.perf_counter() - t0, n_syncs, end)
-            el, n_syncs, end = rolls[kind]
-            per = kernels_per_step(end, **kw) if not kw else None
-            out[kind] = dict(ws=n_worlds * n_steps / el, syncs=n_syncs / n_steps, kernels=per)
-            print(f"phase 17(a) {label} x {n_steps} steps {kind}: {el:.3f} s, "
-                  f"{out[kind]['ws']:.1f} worlds*steps/s, host syncs/step="
-                  f"{out[kind]['syncs']:.2f}, CUDA kernels+copies/step="
-                  f"{'not measured' if per is None else f'{per:.0f}'}")
-        (el0, s0, e0), (el1, s1, e1) = rolls.values()
-        print(f"phase 17(a) {label}: the hook's own cost {1e3 * (el1 - el0) / n_steps:.2f} ms "
-              f"a step, host syncs equal {s0 == s1}, states equal "
-              f"{bool(torch.equal(e0.bodies.c, e1.bodies.c))}")
-        if s0 != s1 or not torch.equal(e0.bodies.c, e1.bodies.c):
+        # without the hook the boxes settle on a still platform and sleep
+        with torch.inference_mode():
+            (e0, s0), (e1, s1) = (roll(replicate(one, n_worlds), n_steps, **kw) for kw in (
+                {}, dict(pre_solve_fn=lambda st, v: {"tangent_speed": v.tangent_speed})))
+        same = s0 == s1 and bool(torch.equal(e0.bodies.c, e1.bodies.c))
+        print(f"phase 17(a) {label} without the hook and with a hook that changes nothing: "
+              f"host syncs and states equal {same}")
+        if not same:
             raise AssertionError(f"{label}: a hook that changes nothing changed the roll")
-    out["err_k1"] = compare_middle(rec.busiest_middle(), f"{label}, busiest step",
-                                   phase="17(a)")
-    out["err_k2"] = compare_toi(rec.busiest_toi(), f"{label}, busiest round",
-                                min_touching=1, phase="17(a)")
-    return out
+    compare_middle(rec.busiest_middle(), f"{label}, busiest step", phase="17(a)")
+    compare_toi(rec.busiest_toi(), f"{label}, busiest round", phase="17(a)")
 
 
 def golden_errors(kept, refs, names):
@@ -2001,23 +1784,20 @@ def hook_goldens(dev):
         kept.append((torch.cat([b.xf_p, b.a[..., None]], -1), b.body_type))
     kept = [(p.cpu().numpy(), t.cpu().numpy()) for p, t in kept]
     elapsed = time.perf_counter() - t0
-    return report_goldens("17(b) hook golden", kept, refs, names, HOOK_GOLDENS, elapsed)
+    report_goldens("17(b) hook golden", kept, refs, names, HOOK_GOLDENS, elapsed)
 
 
 def report_goldens(label, kept, refs, names, spec, elapsed, extra=None):
     errs = golden_errors(kept, refs, names)
-    worst = {}
     for n, (_, steps, bound) in spec.items():
         e = errs[n]
         if any(x is None for x in e):
             raise AssertionError(f"{n}: the body count differs from the trace's")
-        worst[n] = (max(e[:steps]), max(e))
         print(f"phase {label} {n} ({len(names)} in its batch, {elapsed:.3f} s): worst error "
-              f"{worst[n][0]:.4g} over steps 0-{steps - 1} (bound {bound}), {worst[n][1]:.4g} "
+              f"{max(e[:steps]):.4g} over steps 0-{steps - 1} (bound {bound}), {max(e):.4g} "
               f"over the trace{'' if extra is None else extra.get(n, '')}")
-        if not worst[n][0] < bound:
+        if not max(e[:steps]) < bound:
             raise AssertionError(f"{n}: the C++ golden is not met")
-    return worst
 
 
 def mutation_goldens(dev):
@@ -2095,11 +1875,10 @@ def mutation_goldens(dev):
         for body in sorted(nuke):
             st = mutate.remove_body(st, at(cp, body))
     elapsed = time.perf_counter() - t0
-    worst = report_goldens("17(b) mutation golden", kept, refs, names, MUTATION_GOLDENS,
-                           elapsed, {"breakable": f"; split at step {break_step}"})
+    report_goldens("17(b) mutation golden", kept, refs, names, MUTATION_GOLDENS, elapsed,
+                   {"breakable": f"; split at step {break_step}"})
     if break_step != BREAK_STEP:
         raise AssertionError(f"breakable split at step {break_step}, not {BREAK_STEP}")
-    return worst
 
 
 def runtime_joints(dev, n_worlds=128, n_steps=60):
@@ -2124,11 +1903,9 @@ def runtime_joints(dev, n_worlds=128, n_steps=60):
     rec = SandwichRecorder()
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
     states, syncs = roll(states, n_steps, sandwich=rec.hook())
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches(*SANDWICH_NAMES, "solve_middle", "toi", "color_walk")
+    launches = read_launches(path=f"{n_worlds} x pyramid(6) + runtime joints x {n_steps}")
     b = states.bodies
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("runtime joints: NaN/inf in the body state")
@@ -2142,14 +1919,12 @@ def runtime_joints(dev, n_worlds=128, n_steps=60):
     gap = float((xf(k, rj.local_anchor_b[w, 0]) - xf(torch.zeros_like(k),
                                                       rj.local_anchor_a[w, 0])).norm(dim=-1).max())
     print(f"phase 17(c) {n_worlds} x pyramid(6) + a runtime revolute and distance joint x "
-          f"{n_steps} steps: {elapsed:.3f} s, {n_worlds * n_steps / elapsed:.1f} "
-          f"worlds*steps/s, launches={launches}, host syncs/step={syncs / n_steps:.2f}, "
+          f"{n_steps} steps: launches={launches}, host syncs/step={syncs / n_steps:.2f}, "
           f"revolute anchor gap {gap:.4f} m")
     if not gap < 0.05:
         raise AssertionError(f"runtime revolute joints do not hold: gap {gap}")
-    err, _ = compare_sandwich(rec.busiest(), f"{n_worlds} x pyramid(6) + runtime joints, "
-                                             "busiest step", phase="17(c)")
-    return launches, err
+    compare_sandwich(rec.busiest(), f"{n_worlds} x pyramid(6) + runtime joints, busiest step",
+                     phase="17(c)")
 
 
 def query_lanes():
@@ -2300,20 +2075,13 @@ def queries_and_rope(dev, n_worlds=4096, n_ropes=1024):
 
 
 def hooks_and_mutations(dev):
-    """Phase 17. Returns the launches of its three paths and the kernels'
-    largest differences from their plain versions."""
-    paths, err_k1, err_k2 = {}, 0.0, 0.0
+    """Phase 17."""
     for name in HOOK_PATHS:
-        out = hook_path(name, dev)
-        n_worlds, n_steps = HOOK_PATHS[name]
-        paths[f"{n_worlds} x {name} x {n_steps} (hook)"] = out["launches"]
-        err_k1, err_k2 = max(err_k1, out["err_k1"]), max(err_k2, out["err_k2"])
+        hook_path(name, dev)
     hook_goldens(dev)
     mutation_goldens(dev)
-    launches_j, err_sw = runtime_joints(dev)
-    paths["128 x pyramid(6) + runtime joints x 60"] = launches_j
+    runtime_joints(dev)
     queries_and_rope(dev)
-    return paths, err_k1, err_k2, err_sw
 
 
 # phase 18: the joint goldens no earlier phase held (JOINT_GOLDENS) and
@@ -2353,49 +2121,37 @@ _LAUNCHES = dict.fromkeys(COUNTED, 0)
 _LAUNCH_LOCK = threading.Lock()
 
 
-def _count_launch(name):
-    with _LAUNCH_LOCK:
-        _LAUNCHES[name] += 1
-
-
 def zero_launches():
-    """Count the CUDA launches of K1-K8 in this process from 0, by the
-    entry each goes through: ops/solve_middle.py's `_call` (K1 and the
-    sandwich, by its C entry point's name), ops/toi.py's `_launch` (K2)
-    and `_substep_launch` (K8, "toi_substep") and ops/coloring.py's
-    `_launch` (K7, "color_walk"), which the first
-    call wraps. A launch counts once it is taken, from any thread."""
-    from box2d_mt_tpu_torch.ops import coloring
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
-    if not getattr(sm._call, "counted", False):
-        call = sm._call
+    """Count the CUDA launches of K1-K8 in this process from 0, at
+    `cuda_build.call`, which every kernel's wrapper launches through and
+    which the first call wraps: by the C entry's name less "_launch"
+    (K7's "color_launch" as "color_walk"). A launch counts once it is
+    taken, from any thread."""
+    from box2d_mt_tpu_torch import cuda_build
+    if not getattr(cuda_build.call, "counted", False):
+        call = cuda_build.call
 
-        def counted_call(name, *args, **kwargs):
-            out = call(name, *args, **kwargs)
-            _count_launch(name.removesuffix("_launch"))
+        def counted_call(source, name, *args, **kwargs):
+            out = call(source, name, *args, **kwargs)
+            kernel = "color_walk" if name == "color_launch" else name.removesuffix("_launch")
+            with _LAUNCH_LOCK:
+                _LAUNCHES[kernel] += 1
             return out
 
-        def counting(launch, name):
-            def counted_launch(*args):
-                out = launch(*args)
-                _count_launch(name)
-                return out
-            return counted_launch
-
         counted_call.counted = True
-        sm._call = counted_call
-        ktoi._launch = counting(ktoi._launch, "toi")
-        ktoi._substep_launch = counting(ktoi._substep_launch, "toi_substep")
-        coloring._launch = counting(coloring._launch, "color_walk")
+        cuda_build.call = counted_call
     with _LAUNCH_LOCK:
         _LAUNCHES.update(dict.fromkeys(COUNTED, 0))
 
 
-def read_launches(*names):
-    """The launches since `zero_launches()` of `names` (default COUNTED)."""
+def read_launches(path=None):
+    """The launches of each kernel since `zero_launches()`, kept in PATHS
+    under `path` where one is given."""
     with _LAUNCH_LOCK:
-        return {k: _LAUNCHES[k] for k in names or COUNTED}
+        launches = dict(_LAUNCHES)
+    if path is not None:
+        PATHS[path] = launches
+    return launches
 
 
 def sync(dev):
@@ -2595,8 +2351,8 @@ def checks_in_parallel(dev, phases=("18", "19")):
     twice) as the tasks of one pool of PARALLEL_WORKERS processes, phase
     18's first, then phase 19's batches, the most scenes first. Phase 19
     reads phase 18's rolls too: every scene's rows equal run to run and
-    lane to lane. Raises on any failure. Returns the launches of the
-    phases' paths, each counted from 0 before its rolls in its worker."""
+    lane to lane. Raises on any failure. Keeps the launches of the phases'
+    paths, each counted from 0 before its rolls in its worker, in PATHS."""
     import concurrent.futures as cf
     import multiprocessing
     tasks = []
@@ -2653,7 +2409,7 @@ def checks_in_parallel(dev, phases=("18", "19")):
         raise AssertionError(f"not bit-reproducible on the card: {failed}")
     if "19" in phases and min(paths[list_path].values()) <= 0:
         raise AssertionError(f"phase 19: a kernel was not launched: {paths[list_path]}")
-    return paths
+    PATHS.update(paths)
 
 
 # phase 20: (scene, size, worlds, steps, timed) sharded, and the warm-up
@@ -2716,14 +2472,10 @@ def sharded_roll(devices, states, n_steps, count=False, warmup=SHARD_WARMUP):
         step.close()
 
 
-def sharded_path(dev, refs=None):
-    """20: SHARDED's rolls over two shards on one card (and over every
-    card where there are more), each world held bit for bit to the
-    unsharded roll. `refs` maps a scene to its unsharded roll from an
-    earlier phase of this run (the State and Events after SHARDED's
-    steps, worlds*steps/s or None, host syncs a step or None, the steps),
-    which is then not rolled again. Returns {path label: launches} of the
-    two-shard rolls."""
+def sharded_path(dev):
+    """Phase 20: SHARDED's rolls over two shards on one card (and over
+    every card where there are more), each world held bit for bit to the
+    unsharded roll. Keeps the launches of the two-shard rolls in PATHS."""
     import torch
     from box2d_mt_tpu_torch.world import step_batched
     layouts = [("2 shards on cuda:0", [dev, dev], True)]
@@ -2732,35 +2484,26 @@ def sharded_path(dev, refs=None):
         layouts.append((f"{n_cards} shards, one a card",
                         [torch.device("cuda", i) for i in range(n_cards)], False))
     card = card_line()
-    paths = {}
     for scene, size, n_worlds, n_steps, timed in SHARDED:
         name = scene if size is None else f"{scene}({size})"
         mode = contextlib.nullcontext() if timed else torch.inference_mode()
         warmup = SHARD_WARMUP if timed else 0
         with mode:
             base = joint_batch(scene, size, n_worlds, dev)
-        if scene in (refs or {}):
-            ref, ref_ev, rate, per_step, ref_steps = refs[scene]
-            if ref_steps != n_steps:
-                raise AssertionError(f"{name}: the reference has {ref_steps} steps, not "
-                                     f"{n_steps}")
-            rates = {"unsharded (an earlier phase's roll)": (rate, per_step)}
-        else:
-            with mode:
-                st = base
-                for _ in range(warmup):
-                    st, _ = step_batched(st, DT, **MAIN)
-                torch.cuda.synchronize()
-                syncs = 0
-                t0 = time.perf_counter()
-                st = base
-                for _ in range(n_steps):
-                    st, ev = step_batched(st, DT, **MAIN)
-                    syncs += ev.host_syncs
-                torch.cuda.synchronize()
-            rates = {"unsharded": (n_worlds * n_steps / (time.perf_counter() - t0),
-                                   syncs / n_steps)}
-            ref, ref_ev = st, ev
+            st = base
+            for _ in range(warmup):
+                st, _ = step_batched(st, DT, **MAIN)
+            torch.cuda.synchronize()
+            syncs = 0
+            t0 = time.perf_counter()
+            st = base
+            for _ in range(n_steps):
+                st, ev = step_batched(st, DT, **MAIN)
+                syncs += ev.host_syncs
+            torch.cuda.synchronize()
+        rates = {"unsharded": (n_worlds * n_steps / (time.perf_counter() - t0),
+                               syncs / n_steps)}
+        ref, ref_ev = st, ev
         runs = list(layouts)
         if timed:
             runs.insert(0, ("1 shard", [dev], False))
@@ -2784,27 +2527,23 @@ def sharded_path(dev, refs=None):
                 if min(launches[k] for k in want) <= 0:
                     raise AssertionError(f"{name}, {label}: a kernel of its path was not "
                                          f"launched: {launches}")
-                paths[f"phase 20 {n_worlds} x {name} x {n_steps}, {label}"] = launches
+                PATHS[f"phase 20 {n_worlds} x {name} x {n_steps}, {label}"] = launches
         print(f"phase 20 {n_worlds} x {name} x {n_steps} worlds*steps/s (host syncs/step"
               + ("" if timed else "; inference mode") + "): "
-              + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.2f})" for k, v in rates.items()
-                          if v[0] is not None)
+              + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.2f})" for k, v in rates.items())
               + f"; card: {card}")
-    return paths
 
 
 def coloring_kernel(dev):
-    """21: K7 on 512 x pyramid(20)'s recorded colorings and on the
-    tumbler's; held to `_luby` bit for bit, counted and timed. Returns the
-    launches of each roll, counted from 0 before it, K7's largest
-    difference to `_luby` (0: the phase raises on any), its times
-    (`measure`), `_luby`'s ms and the bound."""
+    """Phase 21: K7 on 512 x pyramid(20)'s recorded colorings and on the
+    tumbler's; held to `_luby` bit for bit (the phase raises on any
+    difference), counted and timed."""
     import torch
     from box2d_mt_tpu_torch import trace
     from box2d_mt_tpu_torch.ops import coloring
     from box2d_mt_tpu_torch.ops.sync import HostSyncs
     plain_color = coloring.color_constraints
-    calls, paths = [], {}
+    calls = []
 
     def recorded(*args, **kwargs):
         calls.append(args[:7])
@@ -2822,7 +2561,7 @@ def coloring_kernel(dev):
         finally:
             coloring.color_constraints = plain_color
         sync(dev)
-        launches = paths[f"phase 21 {label} x {n_steps}"] = read_launches()
+        launches = read_launches(path=f"phase 21 {label} x {n_steps}")
         ev = c.events
         print(f"phase 21 {label} x {n_steps}: K7 launches {launches['color_walk']}, "
               f"coloring.kernel {ev['coloring.kernel']}, "
@@ -2853,11 +2592,12 @@ def coloring_kernel(dev):
     m = measure(lambda *a: coloring.color_walk(*a, n, 16), lanes)
     plain = time_call(lambda *a: coloring._luby(*a, n, 16, HostSyncs()), lanes, reps=3)
     n_bytes = w * k * (2 * 8 + 3 + 2 * 4) + w * 4
-    bnd = bound(n_bytes, 0)
+    bnd = least_ms(n_bytes)
     print(f"phase 21 K7 [{w} x K {k} x N {n}]: {show(m, n_bytes)}; plain _luby "
           f"{plain:.3f} ms (events around eager calls); bound {bnd[0]:.5f} ms ({bnd[1]}, "
           f"{n_bytes / 1e6:.2f} MB), {100 * bnd[0] / m['ms']:.2f}% of it")
-    return paths, 0.0, m, plain, bnd
+    keep_worst("color_walk", 0.0)
+    TIMES["color_walk"] = (m, plain, bnd, None)
 
 
 def substep_bytes(args):
@@ -2880,18 +2620,16 @@ def substep_bytes(args):
 
 
 def substep_kernel(dev):
-    """22: K8 on the recorded sub-steps of 16 x multithread_demo(2800) and
-    512 x pyramid(20); held to the plain version bit for bit, counted and
-    timed. Returns the launches of each roll, counted from 0 before it,
-    K8's largest difference to the plain version (0: the phase raises on
-    any), its times (`measure`) at the multithread sub-step, the plain
-    version's ms there and the bound."""
+    """Phase 22: K8 on the recorded sub-steps of 16 x multithread_demo(2800)
+    and 512 x pyramid(20); held to the plain version bit for bit (the phase
+    raises on any difference), counted and timed; the record keeps its
+    times at the multithread sub-step."""
     import torch
     from box2d_mt_tpu_torch import trace
     from box2d_mt_tpu_torch.models import scenes
     from box2d_mt_tpu_torch.ops import toi as ktoi
     from box2d_mt_tpu_torch.state import replicate
-    paths, results = {}, {}
+    results = {}
     plain_passes = ktoi.toi_substep_passes_plain
     for label, make, n_steps in (
             ("16 x multithread_demo(2800)",
@@ -2900,7 +2638,7 @@ def substep_kernel(dev):
         calls = []
         states = make()
         sync(dev)
-        zero_launches()             # wraps the launch entries in their counters
+        zero_launches()
         launch = ktoi._substep_launch
 
         def recorded(args, iterations, launch=launch, calls=calls):
@@ -2914,7 +2652,7 @@ def substep_kernel(dev):
         finally:
             ktoi._substep_launch = launch
         sync(dev)
-        launches = paths[f"phase 22 {label} x {n_steps}"] = read_launches()
+        launches = read_launches(path=f"phase 22 {label} x {n_steps}")
         ev = c.events
         print(f"phase 22 {label} x {n_steps}: K8 launches {launches['toi_substep']}, "
               f"toi.substep_kernel {ev['toi.substep_kernel']}, toi.rounds {ev['toi.rounds']}, "
@@ -2941,171 +2679,55 @@ def substep_kernel(dev):
         m = measure(lambda *a: ktoi.toi_substep_passes(*a, iterations=iterations), args)
         plain = time_call(lambda *a: plain_passes(*a, iterations=iterations), args, reps=3)
         n_bytes = substep_bytes(args)
-        bnd = bound(n_bytes, 0)
+        bnd = least_ms(n_bytes)
         print(f"phase 22 K8 [{label}]: {show(m, n_bytes)}; plain {plain:.3f} ms (events "
               f"around eager calls); bound {bnd[0]:.5f} ms ({bnd[1]}, {n_bytes / 1e6:.3f} "
               f"MB), {100 * bnd[0] / m['ms']:.2f}% of it")
-        results[label] = (m, plain, bnd)
+        results[label] = (m, plain, bnd, None)
         del args, got, want
         torch.cuda.empty_cache()
-    return (paths, 0.0, *results["16 x multithread_demo(2800)"])
+    keep_worst("toi_substep", 0.0)
+    TIMES["toi_substep"] = results["16 x multithread_demo(2800)"]
 
 
-def main() -> int:
+def healthy(states, ev):
+    if int(ev.color_overflow.max()) != 0 or int(ev.toi_overflow.max()) != 0:
+        raise AssertionError("color or TOI overflow on the main path")
+
+
+def main_path(dev):
+    """Phase 4: 512 x pyramid(10) x 60; K1 and K2 held to their plain
+    versions on the inputs it recorded, which phase 8 times."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
-              file=sys.stderr)
-        return 2
-    from box2d_mt_tpu_torch import cuda_build
-    from box2d_mt_tpu_torch.ops import solve_middle as sm
-    from box2d_mt_tpu_torch.ops import toi as ktoi
-    from box2d_mt_tpu_torch.world import step_batched
-
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}  (torch {torch.__version__}, cuda {torch.version.cuda})")
-    t_start = time.perf_counter()
-
-    def lap(phase):
-        print(f"  [phase {phase} done at {time.perf_counter() - t_start:.1f} s]")
-
-    only16 = sys.argv[1:] == ["--phase16"]        # the build and phase 16 alone
-    only17 = sys.argv[1:] == ["--phase17"]        # the build and phase 17 alone
-    # the build and phase 18 or 19 alone, or both
-    only1819 = [a[-2:] for a in sys.argv[1:] if a in ("--phase18", "--phase19")]
-    only20 = sys.argv[1:] == ["--phase20"]        # the build and phase 20 alone
-    only21 = sys.argv[1:] == ["--phase21"]        # the build and phase 21 alone
-    only22 = sys.argv[1:] == ["--phase22"]        # the build and phase 22 alone
-    # ---- 1. build, one nvcc per source
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        builds = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
-    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall")
-    for name, info in builds.items():
-        print(f"  {name}: nvcc {info['seconds']:.2f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                print("    ptxas:", line.strip())
-
-    lap(1)
-    if only16:
-        large_worlds(dev)
-        lap(16)
-        return 0
-    if only17:
-        hooks_and_mutations(dev)
-        lap(17)
-        return 0
-    if only1819:
-        checks_in_parallel(dev, phases=tuple(sorted(only1819)))
-        lap("-".join(sorted(only1819)))
-        return 0
-    if only20:
-        sharded_path(dev)
-        lap(20)
-        return 0
-    if only21:
-        coloring_kernel(dev)
-        lap(21)
-        return 0
-    if only22:
-        substep_kernel(dev)
-        lap(22)
-        return 0
-    # ---- 2. K1 vs plain on captured inputs
-    s10, _ = roll(batch(10, 64, dev), 30)
-    args10, _ = capture_middle(s10)
-    args_ovf, overflow = capture_middle(s10, max_colors=3)
-    if overflow == 0:
-        raise AssertionError("max_colors=3 did not overflow the coloring")
-    s44, _ = roll(batch(44, 16, dev), 60)
-    args44, _ = capture_middle(s44)
-    err_k1 = max(compare_middle(args10, "64 x pyramid(10)"),
-                 compare_middle(args_ovf, f"64 x pyramid(10), max_colors=3, "
-                                          f"{overflow} overflow lanes/world"),
-                 compare_middle(args44, "16 x pyramid(44)"))
-
-    lap(2)
-    # ---- 3. K2 vs plain on captured, golden and inactive lanes
-    lanes_a = capture_toi(batch(10, 64, dev), 30)
-    lanes_b = capture_toi(fast_box_worlds(4096, dev), 1)
-    lanes_c = golden_lanes(dev)
-    lanes_d = (*lanes_c[:-1], torch.zeros_like(lanes_c[-1]))
-    err_k2 = max(
-        compare_toi(lanes_a, "64 x pyramid(10), impact step", min_touching=1),
-        compare_toi(lanes_b, "4096 fast boxes vs a thin wall",
-                    min_touching=int(lanes_b[-1].sum()) // 2 + 1),
-        compare_toi(lanes_c, "200 golden lanes", min_touching=30),
-        compare_toi(lanes_d, "all inactive"))
-    ks, kt = ktoi.time_of_impact_lanes(*lanes_d)
-    if not (bool((ks == 0).all()) and bool((kt == 1.0).all())):
-        raise AssertionError("inactive lanes must return TOI_UNKNOWN and t = t_max")
-
-    lap(3)
-    # ---- 4. the main path
-    def healthy(states, ev):
-        if int(ev.color_overflow.max()) != 0 or int(ev.toi_overflow.max()) != 0:
-            raise AssertionError("color or TOI overflow on the main path")
-
-    main_ev = []
-
-    def healthy_main(states, ev):
-        healthy(states, ev)
-        main_ev[:] = [ev]
-
-    roll(batch(10, 512, dev), 14)                    # first-use allocations
-    states = batch(10, 512, dev)
     rec = Recorder()
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
-    states, syncs = roll(states, 60, check=healthy_main, middle=rec.solve_middle,
+    states, syncs = roll(batch(10, 512, dev), 60, check=healthy, middle=rec.solve_middle,
                          toi=rec.time_of_impact)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches("solve_middle", "toi", "color_walk")
+    launches = read_launches(path="512 x pyramid(10) x 60")
     b = states.bodies
-    dyn = b.body_type == 2
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("solve_middle", "toi", "color_walk")) <= 0:
         raise AssertionError(f"the main path did not launch every kernel: {launches}")
     if not all(bool(torch.isfinite(t).all()) for t in (b.c, b.a, b.v, b.w)):
         raise AssertionError("NaN/inf in the body state")
-    min_y = float(b.c[..., 1][dyn].min())
+    min_y = float(b.c[..., 1][b.body_type == 2].min())
     if min_y <= 0.4:
         raise AssertionError(f"a box fell through: min center y {min_y}")
-    ws10 = 512 * 60 / elapsed
-    pyramid_ref = (states, main_ev[0], ws10, syncs / 60, 60)
-    off = batch(10, 512, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    roll(off, 60, continuous=False)
-    torch.cuda.synchronize()
-    el_off = time.perf_counter() - t0
-    per_step = kernels_per_step(states)
     print(f"phase 4 main path 512 x pyramid(10) x 60 steps, continuous=True: "
-          f"{elapsed:.3f} s, {ws10:.1f} worlds*steps/s, launches={launches}, "
-          f"host syncs/step={syncs / 60:.2f}, min box y={min_y:.4f}, "
-          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}, "
-          f"CUDA kernels+copies/step (steps 61-63)="
-          f"{'not measured' if per_step is None else f'{per_step:.0f}'}; "
-          f"steps 64-68: {phase_split(states)}")
-    print(f"phase 4 continuous=False: {el_off:.3f} s, {512 * 60 / el_off:.1f} "
-          f"worlds*steps/s; TOI phase share of the continuous step "
-          f"{(elapsed - el_off) / elapsed:.3f}")
-    # both kernels against their plain versions on the main path's own
-    # inputs: K1's of its last step, K2's of its round with most touching
-    args_main, lanes_main = rec.middle, rec.busiest_toi()
-    del rec
-    err_k1 = max(err_k1, compare_middle(args_main, "512 x pyramid(10), main path, "
-                                                   "last step", phase=4))
-    err_k2 = max(err_k2, compare_toi(lanes_main, "512 x pyramid(10), main path, "
-                                                 "busiest round", min_touching=1, phase=4))
+          f"launches={launches}, host syncs/step={syncs / 60:.2f}, min box y={min_y:.4f}, "
+          f"touching/world={float(states.contacts.touching.sum(1).float().mean()):.1f}")
+    # K1's inputs of the last step, K2's of the round with most touching lanes
+    INPUTS["main"] = rec.middle, rec.busiest_toi()
+    compare_middle(rec.middle, "512 x pyramid(10), main path, last step", phase=4)
+    compare_toi(INPUTS["main"][1], "512 x pyramid(10), main path, busiest round", phase=4)
 
-    lap(4)
-    # ---- 5. kernel path vs plain path, whole step through the impact
+
+def kernel_vs_plain_path(dev):
+    """Phase 5: the whole step through the kernels vs the plain versions."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
     ker, _ = roll(batch(10, 64, dev), 20)
     pln, _ = roll(batch(10, 64, dev), 20, middle=sm.solve_middle_plain,
                   toi=ktoi.time_of_impact_lanes_plain)
@@ -3119,34 +2741,32 @@ def main() -> int:
     if d["c"] > 2e-5 or d["a"] > 2e-5 or d["v"] > 1e-4 or not (awake_eq and toi_eq):
         raise AssertionError(f"kernel path and plain path disagree: {d}")
 
-    lap(5)
-    # ---- 6. large worlds
-    big = batch(44, 128, dev)
-    roll(batch(44, 8, dev), 1)
+
+def large_pyramids(dev):
+    """Phase 6: 128 x pyramid(44) x 20; K1 and K2 held to their plain
+    versions on the inputs it recorded."""
+    import torch
     rec = Recorder()
     torch.cuda.synchronize()
     zero_launches()
-    t0 = time.perf_counter()
-    big, syncs44 = roll(big, 20, check=healthy, middle=rec.solve_middle,
-                        toi=rec.time_of_impact)
+    big, syncs = roll(batch(44, 128, dev), 20, check=healthy, middle=rec.solve_middle,
+                      toi=rec.time_of_impact)
     torch.cuda.synchronize()
-    el44 = time.perf_counter() - t0
-    launches44 = read_launches("solve_middle", "toi")
+    launches = read_launches(path="128 x pyramid(44) x 20")
     if not bool(torch.isfinite(big.bodies.c).all()):
         raise AssertionError("NaN/inf in the pyramid(44) body state")
-    print(f"phase 6 128 x pyramid(44) x 20 steps: {el44:.3f} s, "
-          f"{128 * 20 / el44:.1f} worlds*steps/s, host syncs/step={syncs44 / 20:.2f}, "
-          f"launches={launches44}")
-    if min(launches44.values()) <= 0:
-        raise AssertionError(f"pyramid(44) did not launch every kernel: {launches44}")
-    err_k1 = max(err_k1, compare_middle(rec.middle, "128 x pyramid(44), last step",
-                                        phase=6))
-    err_k2 = max(err_k2, compare_toi(rec.busiest_toi(), "128 x pyramid(44), busiest "
-                                     "round", min_touching=1, phase=6))
-    del rec, big
+    print(f"phase 6 128 x pyramid(44) x 20 steps: host syncs/step={syncs / 20:.2f}, "
+          f"launches={launches}")
+    if min(launches["solve_middle"], launches["toi"]) <= 0:
+        raise AssertionError(f"pyramid(44) did not launch K1 and K2: {launches}")
+    compare_middle(rec.middle, "128 x pyramid(44), last step", phase=6)
+    compare_toi(rec.busiest_toi(), "128 x pyramid(44), busiest round", phase=6)
 
-    lap(6)
-    # ---- 7. sleep
+
+def sleep(dev):
+    """Phase 7: a pyramid until every body sleeps, then the all-asleep skip."""
+    import torch
+    from box2d_mt_tpu_torch.world import step_batched
     states = batch(10, 64, dev)
     slept_at = None
     for i in range(300):
@@ -3165,22 +2785,31 @@ def main() -> int:
     if not skipped:
         raise AssertionError("the all-asleep skip was not taken")
 
-    lap(7)
-    # ---- 8. time per call and bound, at the main path's shapes
+
+def kernel_times(dev):
+    """Phase 8: K1's and K2's times per call and bounds, at the main path's
+    recorded inputs (phase 4) and at the other shapes of the module's
+    docstring."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
+    args_main, lanes_main = INPUTS["main"]
     floor = launch_floor()
     print(f"phase 8 launch floor (an empty kernel of one warp): {show(floor)}")
     k1_m = measure(sm.solve_middle, args_main)
     k1_plain = time_call(sm.solve_middle_plain, args_main, reps=3)
-    print(f"phase 8 solve_middle [512 x pyramid(10)]: {show(k1_m, k1_bytes(args_main))}; "
-          f"plain {k1_plain:.4f} ms per call; {middle_path(args_main)[0]}")
-    args4096 = tuple(torch.cat([a] * 8).contiguous() if torch.is_tensor(a) else a
-                     for a in args_main)
-    for label, args in (("64 x pyramid(10)", args10), ("16 x pyramid(44)", args44),
-                        ("4096 x pyramid(10), the main path's inputs x 8", args4096)):
+    n_bytes, k1_bnd = k1_bound(args_main)
+    print(f"phase 8 solve_middle [512 x pyramid(10)]: {show(k1_m, n_bytes)}; "
+          f"plain {k1_plain:.4f} ms per call; {middle_path(args_main)}")
+    for label, args in (
+            ("64 x pyramid(10)", capture_middle(roll(batch(10, 64, dev), 30)[0])),
+            ("16 x pyramid(44)", capture_middle(roll(batch(44, 16, dev), 60)[0])),
+            ("4096 x pyramid(10), the main path's inputs x 8",
+             tuple(torch.cat([a] * 8).contiguous() if torch.is_tensor(a) else a
+                   for a in args_main))):
         print(f"phase 8 solve_middle [{label}]: "
-              f"{show(measure(sm.solve_middle, args, profiler=False), k1_bytes(args))}; "
-              f"{middle_path(args)[0]}")
-    del args4096
+              f"{show(measure(sm.solve_middle, args, profiler=False), k1_bound(args)[0])}; "
+              f"{middle_path(args)}")
     # what K1's time is made of: the same call without sweeps (pack,
     # integrate, unpack, launch), with the velocity sweeps alone and with
     # the position sweeps alone
@@ -3189,48 +2818,35 @@ def main() -> int:
                         (0, MAIN["position_iterations"]))}
     print("phase 8 solve_middle [512 x pyramid(10)] split, device ms by (velocity, "
           "position) iterations: " + ", ".join(f"{k}: {v:.4f}" for k, v in split.items()))
-    solved = int(args_main[2][:, -1].sum())
-    k1_bound = bound(k1_bytes(args_main),
-                     solved * (MAIN["velocity_iterations"] * K1_OPS_VEL
-                               + MAIN["position_iterations"] * K1_OPS_POS))
-    print(f"phase 8 bounds: solve_middle {k1_bound[0]:.5f} ms ({k1_bound[1]}: "
-          f"{k1_bytes(args_main)} B, {solved} solved lanes; device time at "
-          f"{100 * k1_bound[0] / k1_m['ms']:.2f}% of it)")
+    print(f"phase 8 bounds: solve_middle {k1_bnd[0]:.5f} ms ({k1_bnd[1]}: {n_bytes} B, "
+          f"{int(args_main[2][:, -1].sum())} solved lanes; device time at "
+          f"{100 * k1_bnd[0] / k1_m['ms']:.2f}% of it)")
+    TIMES["solve_middle"] = (k1_m, k1_plain, k1_bnd, None)
     # K2 at three shapes (its grid beside each) and on the main path's
     # round with only its costliest lane active: how much of K2 is one
     # lane's dependent chain
     lanes_4096 = capture_toi(batch(10, 4096, dev), 30)
-    err_k2 = max(err_k2, compare_toi(lanes_4096, "4096 x pyramid(10), first touching round",
-                                     min_touching=1, phase=8))
-    k2 = {}
+    compare_toi(lanes_4096, "4096 x pyramid(10), first touching round", phase=8)
     for key, label, lanes in (
             ("main", "512 x pyramid(10), main path's busiest round", lanes_main),
-            ("fast", "4096 fast boxes vs a thin wall", lanes_b),
+            ("fast", "4096 fast boxes vs a thin wall",
+             capture_toi(fast_box_worlds(4096, dev), 1)),
             ("4096", "4096 x pyramid(10), first touching round", lanes_4096),
             ("chain", "chain floor: the main path's busiest round, only its costliest "
                       "lane active", costliest_lane(lanes_main))):
-        k2[key] = time_toi(lanes, floor, label)
-        blocks, span = ktoi.grid(k2[key]["lanes"])
+        k2 = time_toi(lanes, label, phase=8)
+        blocks, span = ktoi.grid(k2["lanes"])
         print(f"  grid: {blocks} blocks of 384 threads, {span} lanes a block "
               f"({ktoi.grid(1 << 30)[0]} resident at once)")
-    del lanes_4096
-    k2_m, k2_plain, k2_bound = k2["main"], k2["main"]["plain_ms"], k2["main"]["bound"]
+        if key == "main":
+            TIMES["toi"] = (k2, k2["plain_ms"], k2["bound"], None)
 
-    lap(8)
-    # ---- 9. the sandwich against K1 on a joint-free batch
-    if not sweep_path(args44)[1] or middle_path(args44)[1]:
-        raise AssertionError("16 x pyramid(44) does not turn K4's ring or take K1's ring path")
-    if not middle_path(args10)[1]:
-        raise AssertionError("64 x pyramid(10) does not take K1's resident path")
-    if sweep_path(args_ovf)[2] <= 0:
-        raise AssertionError("the max_colors=3 inputs have no overflow lane")
-    err_sw_k1 = max(
-        sandwich_vs_k1(args10, "64 x pyramid(10)", exact=True),
-        sandwich_vs_k1(args44, "16 x pyramid(44)", exact=True),
-        sandwich_vs_k1(args_ovf, "64 x pyramid(10), max_colors=3", exact=True))
 
-    lap(9)
-    # ---- 10. joint worlds: the sandwich's main path
+def joint_worlds(dev):
+    """Phase 10: the sandwich's main path on the tumbler and the chain; the
+    inputs of their busiest steps are phase 12's."""
+    import torch
+
     def boxes_inside(states):
         b = states.bodies                            # slots 0, 1: ground, container
         d = b.c[:, 2:202] - b.c[:, 1:2]
@@ -3246,16 +2862,27 @@ def main() -> int:
         if not low > -0.2:
             raise AssertionError(f"a chain plank fell through the ground: y {low}")
 
-    launches_t, rec_t = run_joint_scene("tumbler", 200, 256, 120, dev, boxes_inside)
-    err_sw, first_t = compare_sandwich(rec_t.busiest(), "256 x tumbler(200), busiest step")
+    _, rec_t = run_joint_scene("tumbler", 200, 256, 120, dev, boxes_inside, phase=10)
+    first_t = compare_sandwich(rec_t.busiest(), "256 x tumbler(200), busiest step", phase=10)
     del rec_t
-    launches_c, rec_c = run_joint_scene("chain_links", 30, 512, 180, dev, planks_above)
-    err_c, first_c = compare_sandwich(rec_c.busiest(), "512 x chain_links(30), busiest step")
+    launches_c, rec_c = run_joint_scene("chain_links", 30, 512, 180, dev, planks_above,
+                                        phase=10)
+    first_c = compare_sandwich(rec_c.busiest(), "512 x chain_links(30), busiest step",
+                               phase=10)
     del rec_c
-    err_sw = {k: max(v, err_c[k], err_sw_k1) for k, v in err_sw.items()}
+    # the tumbler has no TOI candidate (every pair is dynamic-dynamic), so
+    # of the joint scenes only the chain runs K2 as well
+    if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:
+        raise AssertionError(f"the chain's path missed a kernel: {launches_c}")
+    INPUTS["sandwich"] = first_t, first_c
 
-    lap(10)
-    # ---- 11. kernel path vs plain path on a joint world
+
+def joint_kernel_vs_plain_path(dev):
+    """Phase 11: the whole step of a joint world through the kernels vs
+    the plain versions."""
+    import torch
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    from box2d_mt_tpu_torch.ops import toi as ktoi
     ker, _ = roll(joint_batch("tumbler", 200, 32, dev), 20)
     pln, _ = roll(joint_batch("tumbler", 200, 32, dev), 20, middle=sm.solve_middle_plain,
                   toi=ktoi.time_of_impact_lanes_plain, sandwich=sm.SANDWICH_PLAIN)
@@ -3273,20 +2900,25 @@ def main() -> int:
             or not awake_eq):
         raise AssertionError(f"joint world: kernel path and plain path disagree: {d}")
 
-    lap(11)
-    # ---- 12. K3-K6: time per call and bound at the tumbler's busiest step
+
+def sandwich_times(dev):
+    """Phase 12: K3-K6's times per call and bounds at the tumbler's busiest
+    step, K4's and K5's also at the chain's (phase 10's inputs)."""
+    from benchmark import roofline
+    from box2d_mt_tpu_torch.ops import solve_middle as sm
+    first_t, first_c = INPUTS["sandwich"]
+    floor = launch_floor()
     sw_bytes, solved_t, k3_words = sandwich_bytes(first_t)
-    sw_ops = {"pack_packed": 0, "vel_iter_packed": solved_t * K1_OPS_VEL,
-              "pos_iter_packed": solved_t * K1_OPS_POS, "unpack_packed": 0}
-    sw = {}
+    sw_ops = {"pack_packed": 0, "vel_iter_packed": solved_t * roofline.K1_OPS_VEL,
+              "pos_iter_packed": solved_t * roofline.K1_OPS_POS, "unpack_packed": 0}
     lib = library_calls(first_t)
     for name, fn, plain in zip(SANDWICH_NAMES, sm.SANDWICH, sm.SANDWICH_PLAIN):
         # a sweep updates its table in place: repeated calls move the
         # impulses on, which changes no trip count and no byte moved
-        sw[name] = (measure(fn, first_t[name]), time_call(plain, first_t[name], reps=3),
-                    bound(sw_bytes[name], sw_ops[name]),
-                    device_time(*lib[name]) if name in lib else None)
-        m, plain_ms, bnd, lib_ms = sw[name]
+        TIMES[name] = m, plain_ms, bnd, lib_ms = (
+            measure(fn, first_t[name]), time_call(plain, first_t[name], reps=3),
+            least_ms(sw_bytes[name], sw_ops[name]),
+            device_time(*lib[name]) if name in lib else None)
         print(f"phase 12 {name} [256 x tumbler(200), {solved_t} solved lanes]: "
               f"{show(m, sw_bytes[name])}; "
               f"plain {plain_ms:.4f} ms per call; bound {bnd[0]:.5f} ms "
@@ -3294,7 +2926,7 @@ def main() -> int:
               f"of it, {m['ms'] / floor['ms']:.2f} x the launch floor); library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms on the device'}")
         if name == "pack_packed":
-            words = bound(k3_words, 0)
+            words = least_ms(k3_words)
             print(f"phase 12 pack_packed bound in 32-byte sectors {bnd[0]:.5f} ms "
                   f"({sw_bytes[name]} B, device time at {100 * bnd[0] / m['ms']:.2f}%); "
                   f"in 4-byte words {words[0]:.5f} ms ({k3_words} B, "
@@ -3303,89 +2935,95 @@ def main() -> int:
     for name in ("vel_iter_packed", "pos_iter_packed"):
         fn, plain = getattr(sm, name), getattr(sm, name + "_plain")
         m = measure(fn, first_c[name], profiler=False)
-        bnd = bound(sw_bytes_c[name], solved_c * (K1_OPS_VEL if name[0] == "v" else K1_OPS_POS))
+        bnd = least_ms(sw_bytes_c[name], solved_c * (
+            roofline.K1_OPS_VEL if name[0] == "v" else roofline.K1_OPS_POS))
         print(f"phase 12 {name} [512 x chain_links(30), busiest step, {solved_c} solved "
-              f"lanes; {sweep_path(first_c[name])[0]}]: {show(m, sw_bytes_c[name])}; "
+              f"lanes; {sweep_path(first_c[name])}]: {show(m, sw_bytes_c[name])}; "
               f"plain {time_call(plain, first_c[name], reps=3):.4f} ms per call; bound "
               f"{bnd[0]:.5f} ms ({bnd[1]}; device time at {100 * bnd[0] / m['ms']:.2f}% of "
               f"it, {m['ms'] / floor['ms']:.2f} x the launch floor)")
-    lap(12)
-    # ---- 13. continuous collision against the C++ goldens
-    _, rec = ccd_goldens(dev)
-    err_k2 = max(err_k2, compare_toi(rec.busiest_toi(), "CCD scenes, busiest round",
-                                     min_touching=1, phase=13))
-    del rec
-    lap(13)
-    # ---- 14. circles, chains and sensors
-    err_c1, err_c2, launches_s = circle_stack(dev, floor)
-    err_k1, err_k2 = max(err_k1, err_c1), max(err_k2, err_c2)
-    err_p, launches_p = pinball_table(dev)
-    err_sw = {k: max(v, err_p[k]) for k, v in err_sw.items()}
+
+
+def circles_chains_sensors(dev):
+    """Phase 14."""
+    circle_stack(dev)
+    pinball_table(dev)
     zoo_goldens(dev)
-    lap(14)
-    # ---- 15. mouse, friction, rope, motor, wheel, pulley and gear joints
-    launches_car, err_car, err_car_k2, car_ref = car_path(dev)
-    err_sw = {k: max(v, err_car[k]) for k, v in err_sw.items()}
-    err_k2 = max(err_k2, err_car_k2)
+
+
+def car_and_joint_types(dev):
+    """Phase 15."""
+    car_path(dev)
     joint_types(dev)
-    lap(15)
-    # ---- 16. the grid pair finder and worlds above a block's shared memory
-    launches_large, k1_large, err_l1, err_l2, err_lsw = large_worlds(dev)
-    err_k1, err_k2 = max(err_k1, err_l1), max(err_k2, err_l2)
-    err_sw = {k: max(v, err_lsw) for k, v in err_sw.items()}
-    lap(16)
-    # ---- 17. the PreSolve hook and between-step mutations
-    paths17, err_h1, err_h2, err_j = hooks_and_mutations(dev)
-    err_k1, err_k2 = max(err_k1, err_h1), max(err_k2, err_h2)
-    err_sw = {k: max(v, err_j[k]) for k, v in err_sw.items()}
-    lap(17)
-    # ---- 18-19. the goldens no earlier phase held, and bit reproducibility
-    paths1819 = checks_in_parallel(dev)
-    lap("18-19")
-    # ---- 20. the world axis sharded over host threads and streams
-    paths20 = sharded_path(dev, refs={"pyramid": pyramid_ref, "car": car_ref})
-    del pyramid_ref, car_ref
-    lap(20)
-    # ---- 21. the coloring kernel K7
-    paths21, *k7 = coloring_kernel(dev)
-    lap(21)
-    # ---- 22. the TOI sub-step kernel K8
-    paths22, *k8 = substep_kernel(dev)
-    lap(22)
+
+
+# the phases by number (phases 18 and 19 run together in one pool of
+# workers: checks_in_parallel), and the phase whose recorded inputs a
+# phase times, which runs before it
+PHASES = {4: main_path, 5: kernel_vs_plain_path, 6: large_pyramids, 7: sleep,
+          8: kernel_times, 10: joint_worlds, 11: joint_kernel_vs_plain_path,
+          12: sandwich_times, 13: ccd_goldens, 14: circles_chains_sensors,
+          15: car_and_joint_types, 16: large_worlds, 17: hooks_and_mutations,
+          18: checks_in_parallel, 19: checks_in_parallel, 20: sharded_path,
+          21: coloring_kernel, 22: substep_kernel}
+TIMES_INPUTS_OF = {8: 4, 12: 10}
+
+
+def main() -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--phase", type=int, nargs="+", choices=sorted(PHASES), metavar="N",
+                    help="the build and these phases alone (and the phases whose inputs "
+                         "they time); every phase when left out")
+    chosen = ap.parse_args().phase or list(PHASES)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    from box2d_mt_tpu_torch import cuda_build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}  (torch {torch.__version__}, cuda {torch.version.cuda})")
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"  [phase {phase} done at {time.perf_counter() - t_start:.1f} s]")
+
+    # ---- 1. build, one nvcc per source
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
+    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall")
+    for name, info in builds.items():
+        print(f"  {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print("    ptxas:", line.strip())
+    lap(1)
+
+    selected = sorted(set(chosen) | {TIMES_INPUTS_OF[n] for n in chosen
+                                     if n in TIMES_INPUTS_OF})
+    pooled = tuple(str(n) for n in (18, 19) if n in selected)
+    for n in selected:
+        if n not in (18, 19):
+            PHASES[n](dev)
+            lap(n)
+        elif str(n) == pooled[0]:
+            checks_in_parallel(dev, pooled)
+            lap("-".join(pooled))
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
 
-    # launches: on each main path, counted from 0 just before its run;
-    # `launches` is their sum
-    paths = {"512 x pyramid(10) x 60": launches, "256 x tumbler(200) x 120": launches_t,
-             "256 x car x 120": launches_car}
-    for name, (_, _, n_steps) in LARGE.items():
-        paths[f"{large_label(name)} x {n_steps}"] = launches_large[name]
-    paths.update(paths17)
-    paths.update(paths1819)
-    paths.update(paths20)
-    paths.update(paths21)
-    paths.update(paths22)
     record = []
-    for name, err, m, plain, bnd, lib_ms in (
-            ("solve_middle", err_k1, k1_m, k1_plain, k1_bound, None),
-            ("toi", err_k2, k2_m, k2_plain, k2_bound, None),
-            *((name, err_sw[name], *sw[name]) for name in SANDWICH_NAMES),
-            ("color_walk", *k7, None), ("toi_substep", *k8, None)):
-        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+    for name, (m, plain, bnd, lib_ms) in TIMES.items():
+        by_path = {p: n[name] for p, n in PATHS.items() if n.get(name)}
         record.append(dict(name=name, **KERNELS[name], launches=sum(by_path.values()),
-                           launches_by_path=by_path, max_abs_err=err, ms=m["ms"],
-                           host_ms=m["host_ms"], plain_ms=plain, bound_ms=bnd[0],
-                           bound_by=bnd[1], library_ms=lib_ms))
-    # the tumbler has no TOI candidate (every pair is dynamic-dynamic), so
-    # of the joint scenes only the chain runs K2 as well
-    if min(launches_c[k] for k in SANDWICH_NAMES + ("toi",)) <= 0:
-        raise AssertionError(f"the chain's path missed a kernel: {launches_c}")
-    print(f"phase 14 launches: 512 x sphere_stack(10) {launches_s}; 256 x pinball "
-          f"{launches_p}")
-    print(f"phase 15 launches: 256 x car {launches_car}")
-    for name, (m, bnd) in k1_large.items():
-        print(f"phase 16 solve_middle at {name}: {m['ms']:.4f} ms on the device, bound "
-              f"{bnd[0]:.5f} ms ({bnd[1]})")
+                           launches_by_path=by_path, max_abs_err=WORST.get(name),
+                           ms=m["ms"], host_ms=m["host_ms"], plain_ms=plain,
+                           bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms))
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

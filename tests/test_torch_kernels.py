@@ -2,23 +2,28 @@
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 host without them: `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
-Elsewhere every case skips. Inputs are captured from the port's own step
-(8 x pyramid(10) after 30 steps); max_colors=3 makes the coloring
-overflow, which exercises the kernel's Jacobi chunk path. The
+Elsewhere every case skips. These cases are the card's check that each
+kernel equals its plain version; chip_smoke.py holds each kernel on the
+busiest step of full-size rolls and times it. Launches are counted at
+`cuda_build.call`, by the C entry's name. Inputs are captured from the
+port's own step (8 x pyramid(10) after 30 steps); max_colors=3 makes the
+coloring overflow, which exercises the kernel's Jacobi chunk path. The
 time-of-impact kernel gets the lanes of the step in which a pyramid's
-bottom row reaches the ground, and of fast boxes thrown at a thin wall,
-and golden lanes tiled to every launch shape of its grid (no
-lane active, one lane, a ragged count, one active lane a warp, every lane
-active, spans of two segments with more active lanes than a block has
-threads), each launched twice; its wrapper's argument checks run on the
-CPU too.
+bottom row reaches the ground, of fast boxes thrown at a thin wall, and of
+chip_smoke.py's 4096 fast boxes at random angles and spins (more than half
+their lanes touching), and golden lanes tiled to every launch shape of its
+grid (no lane active, where every lane keeps t_max, one lane, a ragged
+count, one active lane a warp, every lane active, spans of two segments
+with more active lanes than a block has threads), each launched twice; its
+wrapper's argument checks run on the CPU too.
 The four sandwich kernels get the inputs of one step of 8 x tumbler(40)
 (a joint world, after the boxes have landed), recorded through the
 `sandwich=` hook, and the solve middle's inputs of joint-free pyramids at
 every launch shape of the solve middle, the sweeps and the unpack: 128
 contact slots (several worlds a block, the last block partly filled),
-1024, 4096 (more lanes than the shared-memory buffers hold, so the ring
-turns, and the solve middle takes its ring path), an overflow color of
+256 at 64 worlds with an overflow color (every block full), 1024, 4096
+(more lanes than the shared-memory buffers hold, so the ring turns, and
+the solve middle takes its ring path), an overflow color of
 several chunks, a world without a solved lane, and slot counts that are
 no multiple of 4 (rows not 16-byte aligned), on both of the solve
 middle's paths, and 16 copies of a pyramid(44) world side by side in one
@@ -67,7 +72,7 @@ import numpy as np
 import pytest
 import torch
 
-from box2d_mt_tpu_torch import settings, shapes
+from box2d_mt_tpu_torch import cuda_build, settings, shapes
 from box2d_mt_tpu_torch.models import scenes
 from box2d_mt_tpu_torch.ops import coloring
 from box2d_mt_tpu_torch.ops import solve_middle as sm
@@ -82,43 +87,25 @@ DT = 1.0 / 60.0
 
 @contextlib.contextmanager
 def launched():
-    """Counts the CUDA launches the block makes, by the C entry point each
-    goes through: ops/solve_middle.py's `_call` by its entry's name (K1,
-    K3-K6), ops/toi.py's `_launch` as "toi_launch" (K2) and its
-    `_substep_launch` as "toi_substep_launch" (K8), ops/coloring.py's
-    `_launch` as "color_launch" (K7)."""
+    """Counts the CUDA launches the block makes at `cuda_build.call`, which
+    every kernel's wrapper launches through, by the C entry's name:
+    "solve_middle_launch" (K1), "toi_launch" (K2), "pack_packed_launch",
+    "vel_iter_packed_launch", "pos_iter_packed_launch" and
+    "unpack_packed_launch" (K3-K6), "color_launch" (K7) and
+    "toi_substep_launch" (K8)."""
     ran = collections.Counter()
-    call, launch, color_launch = sm._call, ktoi._launch, coloring._launch
-    substep_launch = ktoi._substep_launch
+    call = cuda_build.call
 
-    def counted_substep_launch(*args):
-        out = substep_launch(*args)
-        ran["toi_substep_launch"] += 1
-        return out
-
-    def counted_call(name, *args, **kwargs):
-        out = call(name, *args, **kwargs)
+    def counted_call(source, name, *args, **kwargs):
+        out = call(source, name, *args, **kwargs)
         ran[name] += 1
         return out
 
-    def counted_launch(*args):
-        out = launch(*args)
-        ran["toi_launch"] += 1
-        return out
-
-    def counted_color_launch(*args):
-        out = color_launch(*args)
-        ran["color_launch"] += 1
-        return out
-
-    sm._call, ktoi._launch, coloring._launch = (counted_call, counted_launch,
-                                                 counted_color_launch)
-    ktoi._substep_launch = counted_substep_launch
+    cuda_build.call = counted_call
     try:
         yield ran
     finally:
-        sm._call, ktoi._launch, coloring._launch = call, launch, color_launch
-        ktoi._substep_launch = substep_launch
+        cuda_build.call = call
 
 
 @pytest.fixture(scope="module")
@@ -195,12 +182,15 @@ def _fast_boxes(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scene", ["pyramid", "fast_boxes"])
+@pytest.mark.parametrize("scene", ["pyramid", "fast_boxes", "spinning_fast_boxes"])
 def test_toi_kernel_matches_plain(scene):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on a card")
-    states = (replicate(scenes.pyramid(10, device="cuda"), 8) if scene == "pyramid"
-              else _fast_boxes(512))
+    import chip_smoke
+    states = {"pyramid": lambda: replicate(scenes.pyramid(10, device="cuda"), 8),
+              "fast_boxes": lambda: _fast_boxes(512),
+              # 4096 boxes also at random angles and spins, one lane a warp
+              "spinning_fast_boxes": lambda: chip_smoke.fast_box_worlds(4096, "cuda")}[scene]()
     got = []
 
     def capture(*args):
@@ -223,7 +213,8 @@ def test_toi_kernel_matches_plain(scene):
     # same arithmetic in the same order, built with --fmad=false: bit equal
     assert torch.equal(k_state, p_state)
     assert torch.equal(k_t, p_t)
-    assert int((k_state == 3).sum()) > 0
+    touching = int((k_state == 3).sum())
+    assert touching > (int(args[-1].sum()) // 2 if scene == "spinning_fast_boxes" else 0)
 
 
 _TOI_GOLDEN = pathlib.Path(__file__).resolve().parent / "golden" / "toi.jsonl"
@@ -327,7 +318,7 @@ def test_toi_kernel_matches_plain_at_every_launch_shape(case):
     blocks, span = ktoi.grid(n)
     assert blocks * span >= n > (blocks - 1) * span and span % 32 == 0
     on = torch.as_tensor(active).cuda()
-    assert torch.all(k_state[~on] == 0)
+    assert torch.all(k_state[~on] == 0) and torch.equal(k_t[~on], args[-2][~on])
     if active.any():
         assert int((k_state[on] != 0).sum()) > 0
 
@@ -400,6 +391,7 @@ def test_sandwich_kernel_matches_plain(tumbler_calls, name):
 SHAPE_CASES = {
     "c128": (7, 6, 30, 16, None),
     "c1024": (22, 3, 30, 16, None),
+    "c256_overflow_64_worlds": (10, 64, 30, 3, None),
     "c4096_ring": (44, 2, 60, 16, None),
     "c4096_overflow_chunks": (44, 2, 60, 3, None),
     "c128_empty_world": (7, 6, 30, 16, "empty_world"),
@@ -521,7 +513,7 @@ def test_sandwich_kernels_equal_solve_middle_kernel(middle_args):
     assert shape.global_planes == ("global_planes" in name)
     if "overflow" in name:
         overflow = int((color_start[:, -1] - color_start[:, -2]).max())
-        assert overflow > (1 if name.startswith("c128") or name.startswith("c258") else sm.CK)
+        assert overflow > (1 if name.startswith(("c128", "c256", "c258")) else sm.CK)
     want = sm.solve_middle(*args)
     got = _sandwich(*args)
     torch.cuda.synchronize()

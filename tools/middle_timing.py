@@ -55,9 +55,9 @@ def main() -> int:
         smoke.roll(smoke.batch(rows, n_worlds, dev), 60, middle=rec.solve_middle)
         out[key] = smoke.device_time(sm.solve_middle, rec.middle)
         print(f"{key}: K1 {out[key]:.4f} ms on the device")
-    _, rec = smoke.run_joint_scene("tumbler", 200, 256, 60, dev, lambda states: None,
-                                   phase="t")
-    _, first = smoke.compare_sandwich(rec.busiest(), "256 x tumbler(200)", phase="t")
+    rec = smoke.SandwichRecorder()
+    smoke.roll(smoke.joint_batch("tumbler", 200, 256, dev), 60, sandwich=rec.hook())
+    first = smoke.compare_sandwich(rec.busiest(), "256 x tumbler(200)", phase="t")
     for name in ("vel_iter_packed", "pos_iter_packed", "unpack_packed"):
         out[f"{name}_tumbler_256"] = smoke.device_time(getattr(sm, name), first[name])
         print(f"{name}: {out[f'{name}_tumbler_256']:.4f} ms on the device")

@@ -10,11 +10,11 @@ helpers, so two trees are timed the same way on the same lanes: run both
 in one call, in turns (parent, change, change, parent).
 
 Lanes: the main path's busiest round (512 x pyramid(10) rolled 60 steps
-with continuous collision, whose worlds*steps/s is reported too), 4096
-fast boxes against a thin wall, 4096 x pyramid(10)'s first touching
-round, and the chain floor (the first with only its costliest lane
-active). Each gets K2's device time (graph replay), its duration alone,
-the wrapper's host time, the plain version's time and the bound (see
+with continuous collision), 4096 fast boxes against a thin wall, 4096 x
+pyramid(10)'s first touching round, and the chain floor (the first with
+only its costliest lane active). Each gets K2's device time (graph
+replay), its duration alone, the wrapper's host time, the plain version's
+time and the bound, whose bytes are benchmark/roofline.py's count (see
 `chip_smoke.measure` and `time_toi`). The last line is one JSON object.
 """
 
@@ -24,7 +24,6 @@ import importlib.util
 import json
 import pathlib
 import sys
-import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 
@@ -51,18 +50,11 @@ def main() -> int:
     card = smoke.card_line()
     print(f"card: {card}; tree {tree}")
 
-    smoke.roll(smoke.batch(10, 512, dev), 14)              # first-use allocations
     rec = smoke.Recorder()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     smoke.roll(smoke.batch(10, 512, dev), 60, toi=rec.time_of_impact)
-    torch.cuda.synchronize()
-    ws = 512 * 60 / (time.perf_counter() - t0)
-    print(f"512 x pyramid(10) x 60 steps, continuous=True: {ws:.1f} worlds*steps/s")
     lanes_main = rec.busiest_toi()
     del rec
-    floor = smoke.launch_floor()
-    out = {"card": card, "tree": str(tree), "worlds_steps_per_s": ws, "floor_ms": floor["ms"]}
+    out = {"card": card, "tree": str(tree), "floor_ms": smoke.launch_floor()["ms"]}
     for key, label, lanes in (
             ("main", "512 x pyramid(10), main path's busiest round", lanes_main),
             ("fast", "4096 fast boxes vs a thin wall",
@@ -70,8 +62,8 @@ def main() -> int:
             ("4096", "4096 x pyramid(10), first touching round",
              smoke.capture_toi(smoke.batch(10, 4096, dev), 30)),
             ("chain", "chain floor", smoke.costliest_lane(lanes_main))):
-        smoke.compare_toi(lanes, label, phase="t")
-        r = smoke.time_toi(lanes, floor, label, phase="t")
+        smoke.compare_toi(lanes, label, phase="t", min_touching=0)
+        r = smoke.time_toi(lanes, label, phase="t")
         out[key] = {k: r[k] for k in ("ms", "profiler_ms", "host_ms", "plain_ms",
                                       "lanes", "active")}
         out[key]["bound_ms"] = r["bound"][0]
